@@ -1,0 +1,126 @@
+"""High-level user API (port of `nbodysim_tpu.api`).
+
+`Simulation` mirrors the reference's `class Simulation` surface
+(Simulation.hpp:49-75: construct -> `step()` -> read state / `frame` / `dt`)
+as a stateful wrapper over the functional core; `simulate` is the functional
+entry point. The device is always named by the caller.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from nbodysim_tpu_torch.config import SimConfig
+from nbodysim_tpu_torch.core.state import ParticleState
+from nbodysim_tpu_torch.physics.collisions import (
+    resolve_collision_phase_for_state,
+)
+from nbodysim_tpu_torch.physics.forces import resolve_config_for_state
+from nbodysim_tpu_torch.physics.integrators import (
+    make_rollout,
+    make_step,
+    prime_accelerations,
+)
+
+# Reference dt slider range (main.cpp:865-893).
+DT_MIN = 0.001
+DT_MAX = 0.1
+
+
+def clamp_dt(dt: float) -> Tuple[float, bool]:
+    """Clamp dt into the reference slider range; returns (dt, was_clamped)."""
+    clamped = min(max(dt, DT_MIN), DT_MAX)
+    return clamped, clamped != dt
+
+
+class Simulation:
+    """Stateful convenience wrapper (reference: Simulation.hpp:49-75).
+
+    >>> sim = Simulation(SimConfig(n=25_000), scene="uniform_disc",
+    ...                  device="cuda")
+    >>> sim.run(100)         # 100 steps: K1 + integration + K2 each
+    >>> sim.state.pos        # SoA field access (reference: sim.bodies)
+    """
+
+    def __init__(
+        self,
+        config: Optional[SimConfig] = None,
+        scene: str = "uniform_disc",
+        state: Optional[ParticleState] = None,
+        *,
+        device,
+        **scene_kwargs,
+    ):
+        self.config = config or SimConfig()
+        self.device = torch.device(device)
+        if state is None:
+            from nbodysim_tpu_torch.scenes import init_scene
+
+            state = init_scene(scene, self.config, device=self.device,
+                               **scene_kwargs)
+        else:
+            state = state.to(self.device)
+        # Pin 'auto' backends to the concrete ones for this device and N;
+        # what is not ported yet raises here, before any step.
+        self.config = resolve_config_for_state(
+            state.pos, state.mass, self.config)
+        self.config = resolve_collision_phase_for_state(state, self.config)
+        if self.config.integrator == "leapfrog_kdk":
+            state = prime_accelerations(state, self.config)
+        self.state = state
+        self._step = make_step(self.config)
+        self.check_capacity()
+
+    def check_capacity(self, when: str = "the initial state") -> bool:
+        """Capacity check of the JAX package, reduced to the exact forces
+        and dense collisions ported so far: neither has a fixed-capacity
+        residual, so no cap can be exceeded. Returns False."""
+        return False
+
+    @property
+    def frame(self) -> int:
+        return int(self.state.frame)
+
+    @property
+    def dt(self) -> float:
+        return self.config.dt
+
+    def set_dt(self, dt: float) -> None:
+        """Change the timestep (reference: SIMULATION_DT atomic + T/Y keys)."""
+        self.config = self.config.replace(dt=dt)
+        self._step = make_step(self.config)
+
+    def step(self) -> ParticleState:
+        self.state = self._step(self.state)
+        return self.state
+
+    def run(self, num_steps: int) -> ParticleState:
+        """`num_steps` steps."""
+        for _ in range(num_steps):
+            self.state = self._step(self.state)
+        return self.state
+
+    def diagnostics(self):
+        from nbodysim_tpu_torch.diagnostics.metrics import diagnostics
+
+        return diagnostics(self.state, self.config)
+
+    def system_metrics(self):
+        from nbodysim_tpu_torch.diagnostics.metrics import system_metrics
+
+        return system_metrics(self.state, self.config)
+
+
+def simulate(
+    state: ParticleState,
+    config: SimConfig,
+    num_steps: int,
+) -> ParticleState:
+    """Functional rollout: `num_steps` steps on the state's device."""
+    config = resolve_config_for_state(state.pos, state.mass, config)
+    config = resolve_collision_phase_for_state(state, config)
+    if config.integrator == "leapfrog_kdk":
+        state = prime_accelerations(state, config)
+    return make_rollout(config, num_steps)(state)

@@ -1,0 +1,203 @@
+"""PyTorch port: config and state parity with the JAX package, the error
+paths of what is not ported yet, and the no-JAX import rule."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nbodysim_tpu as nb
+import nbodysim_tpu_torch as nt
+from nbodysim_tpu.io.checkpoint import save_checkpoint
+from nbodysim_tpu_torch.physics import collisions as tcoll
+from nbodysim_tpu_torch.physics.forces import resolve_backend
+
+from _torch_helpers import CPU, jax_arrays, as_np, to_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Every difference between the two SimConfigs, listed once.
+DROPPED_FIELDS = {"pallas_interpret"}   # no interpreter for a CUDA kernel
+DTYPE = (jnp.float32, torch.float32)
+FORCE_BACKENDS = {"jax": ("auto", "pallas", "xla", "bh"),
+                  "torch": ("auto", "cuda", "torch", "bh")}
+COLLISION_BACKENDS = {"jax": ("auto", "pallas", "xla"),
+                      "torch": ("auto", "cuda", "torch")}
+
+
+def test_config_fields_and_defaults_match_jax():
+    jax_fields = {f.name: f.default for f in dataclasses.fields(nb.SimConfig)}
+    port_fields = {f.name: f.default for f in dataclasses.fields(nt.SimConfig)}
+    assert set(jax_fields) - set(port_fields) == DROPPED_FIELDS
+    assert set(port_fields) <= set(jax_fields)
+    assert [k for k in jax_fields if k in port_fields] == list(port_fields)
+    for name, default in port_fields.items():
+        if name == "dtype":
+            assert (jax_fields[name], default) == DTYPE
+        else:
+            assert default == jax_fields[name], name
+    jc, tc = nb.SimConfig(), nt.SimConfig()
+    assert (tc.eps_sq, tc.soft_boundary) == (jc.eps_sq, jc.soft_boundary)
+
+
+@pytest.mark.parametrize("field,values", [
+    ("force_backend", FORCE_BACKENDS),
+    ("collision_backend", COLLISION_BACKENDS),
+])
+def test_config_backend_names(field, values):
+    for v in values["jax"]:
+        nb.SimConfig(**{field: v})
+    for v in values["torch"]:
+        nt.SimConfig(**{field: v})
+    for v in set(values["jax"]) - set(values["torch"]):
+        with pytest.raises(ValueError):
+            nt.SimConfig(**{field: v})
+
+
+@pytest.mark.parametrize("kw", [
+    {"dim": 5}, {"integrator": "rk4"}, {"collision_broad_phase": "tree"},
+    {"collision_block_size": 300},
+])
+def test_config_rejects_what_jax_rejects(kw):
+    with pytest.raises(ValueError):
+        nb.SimConfig(**kw)
+    with pytest.raises(ValueError):
+        nt.SimConfig(**kw)
+
+
+def test_state_numpy_round_trip():
+    rng = np.random.default_rng(0)
+    arrays = {
+        "pos": rng.normal(size=(7, 3)).astype(np.float32),
+        "vel": rng.normal(size=(7, 3)).astype(np.float32),
+        "acc": rng.normal(size=(7, 3)).astype(np.float32),
+        "mass": rng.uniform(1, 2, 7).astype(np.float32),
+        "radius": rng.uniform(1, 2, 7).astype(np.float32),
+        "frame": np.int32(12),
+    }
+    state = nt.ParticleState.from_numpy(arrays, CPU)
+    assert (state.n, state.dim, state.frame.dtype) == (7, 3, torch.int32)
+    bad = dict(arrays, mass=arrays["mass"][:6])
+    with pytest.raises(ValueError, match="mass"):
+        nt.ParticleState.from_numpy(bad, CPU)
+    back = state.to_numpy()
+    assert set(back) == set(arrays)
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v)
+        assert back[k].dtype == np.asarray(v).dtype, k
+
+
+def test_state_loads_jax_checkpoint(tmp_path):
+    cfg = nb.SimConfig(n=64, force_backend="xla")
+    jstate = nb.Simulation(cfg, scene="uniform_disc").run(3)
+    path = save_checkpoint(str(tmp_path / "ckpt"), jstate, cfg)
+    with np.load(path) as z:
+        state = nt.ParticleState.from_numpy(dict(z), CPU)
+    for k, v in jax_arrays(jstate).items():
+        np.testing.assert_array_equal(as_np(getattr(state, k)), v)
+    assert int(state.frame) == 3
+
+
+def test_state_create_matches_jax():
+    rng = np.random.default_rng(1)
+    pos, vel = rng.normal(size=(2, 5, 2)).astype(np.float32)
+    mass = rng.uniform(0.5, 30.0, 5).astype(np.float32)
+    js = nb.ParticleState.create(pos, vel, mass)
+    ts = nt.ParticleState.create(torch.from_numpy(pos), torch.from_numpy(vel),
+                                 torch.from_numpy(mass))
+    for k, v in jax_arrays(js).items():
+        np.testing.assert_allclose(as_np(getattr(ts, k)), v, rtol=1e-6)
+
+
+# -- what is not ported raises, before any pair work ---------------------------
+
+def test_cuda_backend_on_cpu_tensor_raises():
+    with pytest.raises(ValueError, match="CUDA"):
+        resolve_backend(nt.SimConfig(force_backend="cuda"), 16, 2, CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcoll.resolve_collision_backend(
+            nt.SimConfig(collision_backend="cuda"), CPU)
+    state = nt.init_scene("kepler", nt.SimConfig(n=2), device=CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        nt.Simulation(nt.SimConfig(n=2, force_backend="cuda"), state=state,
+                      device=CPU)
+
+
+@pytest.mark.parametrize("cfg,n_bodies,dim", [
+    ({"force_backend": "bh"}, 1000, 2),
+    ({}, 100_000, 2),
+    ({}, 100_000, 3),
+])
+def test_tree_code_raises_not_implemented(cfg, n_bodies, dim):
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        resolve_backend(nt.SimConfig(**cfg), n_bodies, dim, CPU)
+
+
+def test_explicit_exact_backends_run_at_any_n():
+    assert resolve_backend(nt.SimConfig(force_backend="torch"),
+                           200_000, 2, CPU) == "torch"
+    assert resolve_backend(nt.SimConfig(force_backend="cuda"), 200_000, 2,
+                           torch.device("cuda")) == "cuda"
+
+
+def _forbid_pair_work(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("pair work started")
+
+    monkeypatch.setattr(tcoll, "collision_deltas_plain", boom)
+    monkeypatch.setattr(tcoll, "allpairs_collision_deltas", boom)
+
+
+@pytest.mark.parametrize("phase", ["auto", "bucket", "hash", "block"])
+def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
+    _forbid_pair_work(monkeypatch)
+    n_bodies = 70_000 if phase == "auto" else 64
+    state = nt.ParticleState.create(
+        torch.zeros(n_bodies, 2), torch.zeros(n_bodies, 2),
+        torch.ones(n_bodies))
+    cfg = nt.SimConfig(n=n_bodies, collision_broad_phase=phase)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tcoll.resolve_collisions(state, cfg)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tcoll.resolve_collision_phase_for_state(state, cfg)
+    if phase == "auto":
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            nt.Simulation(cfg, state=state, device=CPU)
+
+
+def test_scene_errors():
+    with pytest.raises(KeyError, match="uniform_disc"):
+        nt.init_scene("nope", nt.SimConfig(), device=CPU)
+    for name in ("plummer", "galaxy_merger", "spiral", "kuzmin"):
+        assert name in nt.scenes.SCENES
+        with pytest.raises(NotImplementedError):
+            nt.init_scene(name, nt.SimConfig(n=64), device=CPU)
+
+
+def test_package_imports_no_jax():
+    """The port must run where JAX is absent: import it with jax and the JAX
+    package blocked, and run two steps at N=64 on the CPU."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['nbodysim_tpu'] = None\n"
+        "import torch\n"
+        "import nbodysim_tpu_torch as nt\n"
+        "sim = nt.Simulation(nt.SimConfig(n=64), device='cpu')\n"
+        "sim.run(2)\n"
+        "assert sim.frame == 2\n"
+        "assert bool(torch.isfinite(sim.state.pos).all())\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and "
+        "(m.startswith('jax') or m.startswith('nbodysim_tpu.'))]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
