@@ -8,6 +8,7 @@ entry point. The device is always named by the caller.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -17,6 +18,8 @@ from nbodysim_tpu_torch.core.state import ParticleState
 from nbodysim_tpu_torch.physics.collisions import (
     resolve_collision_phase_for_state,
 )
+from nbodysim_tpu_torch.physics.barneshut import (
+    _OVERFLOW_CAP, bh_near_overflow)
 from nbodysim_tpu_torch.physics.forces import resolve_config_for_state
 from nbodysim_tpu_torch.physics.integrators import (
     make_rollout,
@@ -74,10 +77,23 @@ class Simulation:
         self.check_capacity()
 
     def check_capacity(self, when: str = "the initial state") -> bool:
-        """Capacity check of the JAX package, reduced to the exact forces
-        and dense collisions ported so far: neither has a fixed-capacity
-        residual, so no cap can be exceeded. Returns False."""
-        return False
+        """Host-side capacity check of the tree code's fixed-size overflow
+        residual, which silently drops near-field forces past its cap: with
+        force_backend "bh" (and the deep chain off), warn when the bucket
+        overflow exceeds it. Returns True when it does. The dense collision
+        pass ported so far has no cap (the bucket broad phase is slice 3)."""
+        if self.config.force_backend != "bh" or self.config.bh_deep_levels:
+            return False
+        over = bh_near_overflow(self.state.pos, self.state.mass, self.config)
+        if over <= _OVERFLOW_CAP:
+            return False
+        warnings.warn(
+            f"BH near-field overflow {over} exceeds the residual capacity "
+            f"{_OVERFLOW_CAP} on {when}; excess particles get no near-field "
+            f"force. Use force_backend='cuda' for this scene (the deep-"
+            f"overflow chain, bh_deep_levels=-1, is not ported yet).",
+            RuntimeWarning)
+        return True
 
     @property
     def frame(self) -> int:

@@ -47,3 +47,14 @@ def pairwise_blocked(
         for o, a in zip(outs, acc):
             o[i:i + bs_t] = a
     return outs
+
+
+def sorted_first_occurrence(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """Index of the first occurrence of each element's key, for SORTED keys
+    (what `torch.searchsorted(keys, keys, side="left")` gives): mark where
+    the key changes, then a running max of those start indices. int64."""
+    n = sorted_keys.shape[0]
+    idx = torch.arange(n, device=sorted_keys.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
+    is_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return torch.cummax(torch.where(is_start, idx, 0), 0).values

@@ -27,6 +27,16 @@
 // is deterministic. Each slice sums one tile (64 terms) before adding it to
 // its running total, which keeps the f32 summation error near that of the
 // blocked plain version. The ragged last tile is masked by index.
+//
+// Few targets, many sources (the tree code's outliers <- all, 4096 x 1M):
+// 64 blocks would leave half of the 132 SMs idle. The caller then splits
+// the sources into `splits` contiguous chunks along a second grid axis
+// (gridDim.y); each block writes its chunk's partial sums to a scratch
+// array [splits, N, D], and a second pass adds the chunks in index order.
+// No atomics, so the result stays deterministic. With splits == 1 the
+// block writes straight to `out`. The same entry point serves K4 (many
+// targets, few sources: the bulk <- outliers coupling), which needs no
+// split.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +50,7 @@ template <int DIM, bool MASK>
 __global__ void __launch_bounds__(kTile)
 allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
                 const float* __restrict__ src_mass, float* __restrict__ out,
-                int n, int s, float eps_sq, float g) {
+                int n, int s, int chunk, float eps_sq, float g) {
   __shared__ float4 tile[kTile];
   __shared__ float part[kSlices - 1][DIM][kTargets];
 
@@ -57,9 +67,13 @@ allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
   }
   float ax = 0.f, ay = 0.f, az = 0.f;
 
-  for (int base = 0; base < s; base += kTile) {
+  // This block's chunk of sources: [s_begin, s_end), chunk a multiple of
+  // kTile; blockIdx.y == 0 and chunk >= s without a split.
+  const int s_begin = blockIdx.y * chunk;
+  const int s_end = min(s, s_begin + chunk);
+  for (int base = s_begin; base < s_end; base += kTile) {
     const int j = base + lane;
-    if (j < s) {
+    if (j < s_end) {
       float4 q;
       q.x = src[j * DIM];
       q.y = src[j * DIM + 1];
@@ -68,7 +82,7 @@ allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
       tile[lane] = q;
     }
     __syncthreads();
-    const int count = min(kTargets, s - base - ty * kTargets);
+    const int count = min(kTargets, s_end - base - ty * kTargets);
     const float4* slice = tile + ty * kTargets;
     float tx_sum = 0.f, ty_sum = 0.f, tz_sum = 0.f;
 #pragma unroll 8
@@ -108,38 +122,70 @@ allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
       ay += part[p][1][tx];
       if (DIM == 3) az += part[p][DIM - 1][tx];
     }
-    out[i * DIM] = ax;
-    out[i * DIM + 1] = ay;
-    if (DIM == 3) out[i * DIM + 2] = az;
+    float* o = out + static_cast<size_t>(blockIdx.y) * n * DIM;
+    o[i * DIM] = ax;
+    o[i * DIM + 1] = ay;
+    if (DIM == 3) o[i * DIM + 2] = az;
   }
+}
+
+// out[k] = sum_p part[p][k], p in index order (the split's second pass).
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, int count,
+                                  int splits) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= count) return;
+  float a = 0.f;
+  for (int p = 0; p < splits; ++p)
+    a += part[static_cast<size_t>(p) * count + k];
+  out[k] = a;
 }
 
 template <int DIM, bool MASK>
 void launch(const float* tgt, const float* src, const float* src_mass,
-            float* out, int n, int s, float eps_sq, float g,
-            cudaStream_t stream) {
+            float* dst, int n, int s, int splits, int chunk, float eps_sq,
+            float g, cudaStream_t stream) {
   const dim3 block(kTargets, kSlices);
-  const dim3 grid((n + kTargets - 1) / kTargets);
+  const dim3 grid((n + kTargets - 1) / kTargets, splits);
   allpairs_kernel<DIM, MASK><<<grid, block, 0, stream>>>(
-      tgt, src, src_mass, out, n, s, eps_sq, g);
+      tgt, src, src_mass, dst, n, s, chunk, eps_sq, g);
 }
 
 }  // namespace
 
+// splits >= 1 source chunks; with splits > 1, `scratch` holds
+// splits * n * dim floats.
 extern "C" int nb_allpairs_accelerations(
     const float* tgt, const float* src, const float* src_mass, float* out,
-    int n, int s, int dim, float eps_sq, float g, void* stream) {
+    float* scratch, int n, int s, int dim, int splits, float eps_sq, float g,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool mask = eps_sq == 0.f;
-  if (n <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || s <= 0 || splits <= 0 || (splits > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Chunks are whole tiles, so only the last one is ragged.
+  const int per = (s + splits - 1) / splits;
+  const int chunk = (per + kTile - 1) / kTile * kTile;
+  float* dst = splits > 1 ? scratch : out;
   if (dim == 2) {
-    if (mask) launch<2, true>(tgt, src, src_mass, out, n, s, eps_sq, g, st);
-    else launch<2, false>(tgt, src, src_mass, out, n, s, eps_sq, g, st);
+    if (mask) launch<2, true>(tgt, src, src_mass, dst, n, s, splits, chunk,
+                              eps_sq, g, st);
+    else launch<2, false>(tgt, src, src_mass, dst, n, s, splits, chunk,
+                          eps_sq, g, st);
   } else if (dim == 3) {
-    if (mask) launch<3, true>(tgt, src, src_mass, out, n, s, eps_sq, g, st);
-    else launch<3, false>(tgt, src, src_mass, out, n, s, eps_sq, g, st);
+    if (mask) launch<3, true>(tgt, src, src_mass, dst, n, s, splits, chunk,
+                              eps_sq, g, st);
+    else launch<3, false>(tgt, src, src_mass, dst, n, s, splits, chunk,
+                          eps_sq, g, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int count = n * dim;
+    sum_splits_kernel<<<(count + 255) / 256, 256, 0, st>>>(scratch, out, count,
+                                                           splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,11 @@
 
 Every `nbodysim_tpu_torch/csrc/*.cu` file exports plain C functions that take
 device pointers, sizes, scalars and a stream, and return `cudaGetLastError()`.
-At first use they are compiled together with `nvcc` for Hopper (`sm_90a`)
-into one shared library under `build/` at the repository root, cached by a
-hash of the sources and flags, and loaded with `ctypes`. Only the sources in
-this checkout are built; nothing is fetched.
+At first use each source is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all of them at once, and the objects are linked into one shared library under
+`build/` at the repository root, cached by a hash of the sources and flags,
+and loaded with `ctypes`. Only the sources in this checkout are built;
+nothing is fetched.
 
 `--use_fast_math` is deliberately absent: the collision kernel divides and
 takes `sqrtf` in its time-of-impact math, which must stay IEEE-rounded.
@@ -27,9 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp = ctypes.c_void_p
@@ -38,10 +39,13 @@ _f = ctypes.c_float
 # Every pointer and the stream are c_void_p: left undeclared, ctypes would
 # pass them as 32-bit ints and cut the address.
 SIGNATURES = {
-    # tgt, src, src_mass, out, n, s, dim, eps_sq, g, stream
-    "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _i, _i, _i, _f, _f, _vp),
+    # tgt, src, src_mass, out, scratch, n, s, dim, splits, eps_sq, g, stream
+    "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                                  _f, _f, _vp),
     # pos, vel, mass, radius, dpos, dvel, n, dim, impulse, stream
     "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp),
+    # bx, by, bm, ax, ay, center_rows, res, cap, rr, eps_sq, stream
+    "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp),
 }
 
 
@@ -72,20 +76,35 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(
-        f"{' '.join(cmd)}\nseconds {time.perf_counter() - t0:.3f}\n"
-        f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources:
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(obj.with_suffix(".log"), "w") as out:
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT)))
+        # Every compile is waited for, failed or not.
+        codes = [proc.wait() for _, _, proc in jobs]
+        logs = [f"{' '.join(cmd)}\n{obj.with_suffix('.log').read_text()}"
+                for cmd, obj, _ in jobs]
+        failed = [log for log, code in zip(logs, codes) if code != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = Path(tmp) / "lib.so"
+        link = [nvcc, *GENCODE, "-shared", "-o", str(so),
+                *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text(
+            "".join(logs) + f"{' '.join(link)}\n"
+            f"seconds {time.perf_counter() - t0:.3f}\n")
+        os.replace(so, lib)  # atomic: concurrent builders never see a partial
     return lib
 
 

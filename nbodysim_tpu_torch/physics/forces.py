@@ -9,11 +9,14 @@ with the self/coincident term skipped (reference Quadtree.hpp:124).
   * `direct_accelerations`  — exact O(N^2) plain torch, blocked; the CPU
     path and the reference on the card.
   * `compute_accelerations` — dispatch: the CUDA kernel K1
-    (kernels/allpairs.py) or the plain version, per `force_backend`.
+    (kernels/allpairs.py) or the plain version, or the 2D tree code
+    (physics/barneshut.py, `"bh"`, automatic from N = 100k), per
+    `force_backend`.
 
-The tree code (`"bh"`, automatic from N = 100k) is ROADMAP slice 2 and not
-ported yet: asking for it raises NotImplementedError and never falls back to
-the exact path silently.
+What is not ported raises NotImplementedError and never falls back to
+another force law silently: the 3D tree code (ROADMAP slice 4), and the
+tree code's deep-overflow chain (ROADMAP item 10), which the JAX package
+switches on for scenes too clustered for the near-field buckets.
 """
 
 from __future__ import annotations
@@ -28,9 +31,11 @@ from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations,
     allpairs_accelerations_plain,
 )
+from nbodysim_tpu_torch.physics.barneshut import (
+    _OVERFLOW_CAP, bh_accelerations, bh_near_overflow)
 
-# Exact/tree crossovers of the JAX package (forces.py:205,210). The tree
-# side is not ported, so 'auto' at or above them raises.
+# Exact/tree crossovers of the JAX package (forces.py:205,210). In 3D the
+# tree side is not ported, so 'auto' at or above it raises.
 BH_AUTO_THRESHOLD = 100_000
 BH3_AUTO_THRESHOLD = 100_000
 
@@ -87,20 +92,23 @@ def potential_energy(
 
 def resolve_backend(config: SimConfig, n: int, dim: int,
                     device: torch.device) -> str:
-    """Resolve `config.force_backend` to "cuda" or "torch" for `n` bodies
-    on `device`.
+    """Resolve `config.force_backend` to "cuda", "torch" or "bh" for `n`
+    bodies on `device`.
 
-    'auto' picks the CUDA kernel on a CUDA device and the plain version on
-    the CPU. An explicit "cuda" runs K1 at any N, but raises on a CPU
-    device. The tree code — explicit "bh", or 'auto' at N >= 100k — raises
+    'auto' picks the 2D tree code from N = 100k, and below it the CUDA
+    kernel on a CUDA device and the plain version on the CPU. An explicit
+    "cuda" runs K1 at any N, but raises on a CPU device. The 3D tree code
+    (explicit "bh", or 'auto' at N >= 100k in 3D) raises
     NotImplementedError."""
     device = torch.device(device)
     backend = config.force_backend
     threshold = BH_AUTO_THRESHOLD if dim == 2 else BH3_AUTO_THRESHOLD
-    if backend == "bh" or (backend == "auto" and n >= threshold):
+    if backend == "auto" and n >= threshold:
+        backend = "bh"
+    if backend == "bh" and dim == 3:
         raise NotImplementedError(
-            f"the tree code (force_backend='bh', automatic from N="
-            f"{threshold}) is ROADMAP slice 2 and not ported yet; for "
+            f"the 3D tree code (force_backend='bh', automatic from N="
+            f"{threshold}) is ROADMAP slice 4 and not ported yet; for "
             f"N={n} set force_backend='cuda' or 'torch' to run the exact "
             f"O(N^2) forces")
     if backend == "auto":
@@ -112,10 +120,26 @@ def resolve_backend(config: SimConfig, n: int, dim: int,
 
 
 def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
-    """Pin 'auto' to the concrete backend for this state (the JAX package
-    also probes tree occupancy here; that belongs to slice 2)."""
-    return config.replace(force_backend=resolve_backend(
-        config, pos.shape[0], pos.shape[1], pos.device))
+    """State-aware 'auto' resolution: pin the backend, and when 'auto'
+    picks the tree code, probe the near-field bucket occupancy of the
+    actual particles once (`bh_near_overflow`). Where the overflow exceeds
+    the exact residual's capacity, the JAX package turns on the deep-
+    overflow chain; that is ROADMAP item 10, so the port raises
+    NotImplementedError rather than run the tree without it. An explicit
+    force_backend='bh' keeps the user's choice (with the capacity warning
+    of `api.Simulation.check_capacity`)."""
+    n, dim = pos.shape[0], pos.shape[1]
+    backend = resolve_backend(config, n, dim, pos.device)
+    if backend != "bh" or config.force_backend != "auto":
+        return config.replace(force_backend=backend)
+    over = bh_near_overflow(pos, mass, config)
+    if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
+        raise NotImplementedError(
+            f"auto force backend: near-field overflow {over} exceeds the "
+            f"exact-residual capacity {_OVERFLOW_CAP}; this scene needs the "
+            f"tree code's deep-overflow chain, which is ROADMAP item 10 and "
+            f"not ported yet. Set force_backend='cuda' for exact forces.")
+    return config.replace(force_backend="bh")
 
 
 def compute_accelerations(
@@ -125,6 +149,8 @@ def compute_accelerations(
 ) -> torch.Tensor:
     """Dispatch to the configured force backend."""
     backend = resolve_backend(config, pos.shape[0], pos.shape[1], pos.device)
+    if backend == "bh":
+        return bh_accelerations(pos, mass, config)
     if backend == "cuda":
         return allpairs_accelerations(
             pos, mass, eps_sq=config.eps_sq, g_const=config.g_const)

@@ -11,9 +11,12 @@ import pytest
 
 import jax.numpy as jnp
 from nbodysim_tpu.kernels.allpairs import allpairs_accelerations as jax_k1
+from nbodysim_tpu.kernels.allpairs import (
+    allpairs_accelerations_wide as jax_k4)
 from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu_torch.kernels.allpairs import (
-    allpairs_accelerations, allpairs_accelerations_plain)
+    allpairs_accelerations, allpairs_accelerations_plain,
+    allpairs_accelerations_wide)
 from nbodysim_tpu_torch.physics import forces as tforces
 
 from _torch_helpers import as_np, rand_system, as_t
@@ -106,3 +109,24 @@ def test_potential_matches_jax():
     jpart = float(jforces._partial_potential(pos[:100], mass[:100], pos,
                                              mass, 1.0))
     assert abs(part - jpart) / abs(jpart) < 1e-5
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_wide_matches_jax(dim):
+    """K4's wrapper on a CPU tensor (the plain version with separate
+    sources) against the JAX wide Pallas kernel in interpret mode: many
+    targets, few sources, one of them massless."""
+    pos, _ = rand_system(1000, dim=dim, seed=4)
+    src, src_m = rand_system(37, dim=dim, seed=5)
+    src_m[3] = 0.0
+    got = as_np(allpairs_accelerations_wide(
+        as_t(pos), as_t(src), as_t(src_m), eps_sq=1.0, g_const=2.0))
+    ref = np.asarray(jax_k4(jnp.asarray(pos), jnp.asarray(src),
+                            jnp.asarray(src_m), eps_sq=1.0, g_const=2.0,
+                            interpret=True))
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+    plain = as_np(allpairs_accelerations_plain(
+        as_t(pos), None, eps_sq=1.0, g_const=2.0, src_pos=as_t(src),
+        src_mass=as_t(src_m)))
+    np.testing.assert_array_equal(got, plain)
+

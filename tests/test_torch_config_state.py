@@ -134,8 +134,19 @@ def test_cuda_backend_on_cpu_tensor_raises():
     ({}, 100_000, 3),
 ])
 def test_tree_code_raises_not_implemented(cfg, n_bodies, dim):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        resolve_backend(nt.SimConfig(**cfg), n_bodies, dim, CPU)
+    """The 2D tree code is ported and resolves to "bh"; what it still lacks,
+    the deep-overflow chain (ROADMAP item 10), raises, and so does the 3D
+    tree code (slice 4)."""
+    config = nt.SimConfig(**cfg)
+    if dim == 3:
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            resolve_backend(config, n_bodies, dim, CPU)
+        return
+    assert resolve_backend(config, n_bodies, dim, CPU) == "bh"
+    with pytest.raises(NotImplementedError, match="item 10"):
+        nt.compute_accelerations(
+            torch.zeros(16, 2), torch.ones(16),
+            config.replace(force_backend="bh", bh_deep_levels=-1))
 
 
 def test_explicit_exact_backends_run_at_any_n():

@@ -1,5 +1,7 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1 and K2 against their
-plain torch versions on the card, their launch counts, and the main path.
+"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K4 against their
+plain torch versions on the card, their launch counts, the N=25k main path,
+and the tree code through the kernels against the same code through the
+plain versions.
 
 Marked `cuda`; every test skips without a CUDA device. On a machine with a
 card and without JAX (tests/conftest.py imports JAX), run:
@@ -12,9 +14,13 @@ import torch
 
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu_torch.kernels.allpairs import (
-    allpairs_accelerations, allpairs_accelerations_plain)
+    allpairs_accelerations, allpairs_accelerations_plain,
+    allpairs_accelerations_wide)
 from nbodysim_tpu_torch.kernels.collide import (
     allpairs_collision_deltas, collision_deltas_plain)
+from nbodysim_tpu_torch.kernels.nearfield import (
+    bucket_stencil, bucket_stencil_plain)
+from nbodysim_tpu_torch.physics.barneshut import bh_accelerations
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +113,15 @@ def test_launch_counters_count_kernel_launches_only(dev):
     allpairs_accelerations(pos.cpu(), mass.cpu(), eps_sq=1.0)  # plain path
     assert allpairs_accelerations.launches == k1 + 1
     assert allpairs_collision_deltas.launches == k2 + 1
+    k3, k4 = bucket_stencil.launches, allpairs_accelerations_wide.launches
+    grid = torch.rand(8, 8, 4, device=dev)
+    bucket_stencil(grid, grid, grid, rr=2, eps_sq=1.0, center_rows=4)
+    bucket_stencil(grid.cpu(), grid.cpu(), grid.cpu(), rr=2, eps_sq=1.0,
+                   center_rows=4)
+    allpairs_accelerations_wide(pos, pos[:7], mass[:7], eps_sq=1.0)
+    assert bucket_stencil.launches == k3 + 1
+    assert allpairs_accelerations_wide.launches == k4 + 1
+    assert allpairs_accelerations.launches == k1 + 1
 
 
 def test_wrappers_reject_malformed_input(dev):
@@ -121,6 +136,12 @@ def test_wrappers_reject_malformed_input(dev):
                                   torch.rand(9, 2, device=dev),
                                   torch.rand(10, device=dev),
                                   torch.rand(10, device=dev), impulse=1.5)
+    grid = torch.rand(8, 8, 4, device=dev)
+    with pytest.raises(ValueError):   # rows != center_rows + 2rr
+        bucket_stencil(grid, grid, grid, rr=2, eps_sq=1.0, center_rows=5)
+    with pytest.raises(ValueError):   # more than 16 slots
+        big = torch.rand(8, 8, 17, device=dev)
+        bucket_stencil(big, big, big, rr=2, eps_sq=1.0, center_rows=4)
 
 
 def test_main_path_runs_through_the_kernels(dev):
@@ -141,3 +162,67 @@ def test_main_path_runs_through_the_kernels(dev):
         1e-5 * float(b.pos.abs().max())
     assert float((a.vel - b.vel).abs().max()) <= \
         1e-5 * float(b.vel.abs().max())
+
+
+@pytest.mark.parametrize("rows,res,cap,rr,eps_sq", [
+    (12, 32, 8, 2, 1.0), (512, 512, 16, 2, 1.0), (13, 37, 16, 1, 1.0),
+    (20, 40, 5, 4, 0.0)])
+def test_k3_matches_plain(dev, rows, res, cap, rr, eps_sq):
+    g = _gen(dev, 7)
+    shape = (rows + 2 * rr, res, cap)
+    bx, by = _uniform(g, shape, -5.0, 5.0), _uniform(g, shape, -5.0, 5.0)
+    bm = _uniform(g, shape, 0.0, 2.0)
+    bm = torch.where(torch.rand(shape, generator=g, device=dev) < 0.4, bm,
+                     0.0)
+    got = bucket_stencil(bx, by, bm, rr=rr, eps_sq=eps_sq, center_rows=rows)
+    ref = bucket_stencil_plain(bx, by, bm, rr, eps_sq, rows)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    for a, r in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - r).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,s", [(65_536, 4096), (4096, 300_000)])
+def test_k4_and_split_k1_match_plain(dev, n, s):
+    """Many targets x few sources (K4), and few x many, where K1 splits its
+    sources over a second grid axis."""
+    g = _gen(dev, 8)
+    pos = _uniform(g, (n, 2), -3e4, 3e4)
+    src = _uniform(g, (s, 2), -3e4, 3e4)
+    src_m = _uniform(g, (s,), 0.1, 10.0)
+    ref = allpairs_accelerations_plain(pos, None, eps_sq=1.0, src_pos=src,
+                                       src_mass=src_m)
+    if n > s:
+        got = allpairs_accelerations_wide(pos, src, src_m, eps_sq=1.0)
+    else:
+        got = allpairs_accelerations(pos, None, eps_sq=1.0, src_pos=src,
+                                     src_mass=src_m)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_tree_code_runs_through_the_kernels(dev):
+    """N = 131,072 uniform: 'auto' is the tree; one evaluation launches K1,
+    K3 and K4 once each and matches the plain route within 1e-5 max|a|
+    (index_add_'s atomics make the pyramid's last bits vary)."""
+    g = _gen(dev, 9)
+    n = 1 << 17
+    pos = _uniform(g, (n, 2), -3e4, 3e4)
+    mass = _uniform(g, (n,), 0.1, 10.0)
+    cfg = nt.SimConfig(n=n, enable_collisions=False)
+    state = nt.ParticleState.create(pos, torch.zeros_like(pos), mass)
+    sim = nt.Simulation(cfg, state=state, device=dev)
+    assert sim.config.force_backend == "bh"
+    counts = [allpairs_accelerations.launches, bucket_stencil.launches,
+              allpairs_accelerations_wide.launches]
+    got = nt.compute_accelerations(pos, mass, sim.config)
+    assert [allpairs_accelerations.launches, bucket_stencil.launches,
+            allpairs_accelerations_wide.launches] == [c + 1 for c in counts]
+    ref = bh_accelerations(pos, mass, sim.config, use_kernels=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    sim.run(2)
+    assert sim.frame == 2 and bool(torch.isfinite(sim.state.pos).all())
+
