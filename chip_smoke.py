@@ -32,7 +32,22 @@ Phases, each printing its own lines:
                 enable_collisions=False)) under 'auto' running 20 steps
                 with K1, K3 and K4 launched exactly once per step, and the
                 N=131,072 disc raising NotImplementedError (it needs the
-                deep-overflow chain, not ported).
+                deep-overflow chain, not ported);
+  8. collide  — K5 against its plain version on 2D and 3D colliding clouds
+                (max_cheb 1 and None), at both big-body shapes [64 x 1M] and
+                [1M x 64] (with smalls moved inside the nuclei, so pairs
+                fire) and at the full-cap residual shape [1M x 16384]; K6
+                and the whole block pass through the kernels against the
+                plain route on 2D and 3D blobs with uncovered blocks and on
+                the N=1M galaxy merger (1e-5 * max(max|v|, 10), momentum);
+                K1 on the merger's N=1M state against its plain version on
+                4096 rows (1e-5 * max|a|); the N=4M merger under 'auto'
+                (block pass, its overflow, launches of one pass, one pass
+                timed by stage); Simulation of the N=1M merger (force_backend
+                "cuda", collisions resolved to the block pass): 1 warm-up
+                step, then run(3) with K1 and K6 launched once per step and
+                K5 at least twice; one bucket pass on phase 6's N=1M uniform
+                input with random velocities under 'auto'.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -46,6 +61,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 
 def fail(msg: str) -> None:
@@ -60,6 +76,45 @@ def require(cond: bool, msg: str) -> None:
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def k5_needed_pairs(tgt, src, max_cheb, chunk=8192) -> float:
+    """K5's pair tests that this data needs (the bound's work): both masses
+    > 0 and, with `max_cheb`, int32 cells within that Chebyshev distance."""
+    t_live, s_live = tgt[2] > 0, src[2] > 0
+    if max_cheb is None:
+        return float(t_live.sum()) * float(s_live.sum())
+    tc, sc = tgt[4][t_live], src[4][s_live]
+    total = 0
+    for i in range(0, tc.shape[0], chunk):
+        cheb = (sc[None] - tc[i:i + chunk, None]).abs().amax(-1)
+        total = total + (cheb <= max_cheb).sum()
+    return float(total)
+
+
+def k6_needed_pairs(s, planes) -> float:
+    """Pairs that K6's masks let through on this data (the bound's work):
+    keys, both rows `ok`, not the same row. Per ok target, the ok rows of
+    its 3^D neighbouring cells: one lex range of the sorted keys per lead
+    offset, the trailing key within +-1."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbodysim_tpu_torch.kernels.collide_block import lead_offsets
+    from nbodysim_tpu_torch.physics.collisions import _lex_searchsorted
+
+    keys = s.keys
+    dim = keys.shape[0]
+    ok = planes[-1] > 0
+    cum = F.pad(torch.cumsum(ok.to(torch.int64), 0), (1, 0))
+    kt = keys[:, ok]
+    offs = torch.tensor(lead_offsets(dim), dtype=torch.int32,
+                        device=keys.device)                   # [n_off, D-1]
+    lead = [kt[a][:, None] + offs[None, :, a] for a in range(dim - 1)]
+    tail = kt[dim - 1][:, None].expand(-1, offs.shape[0])
+    lo = _lex_searchsorted(list(keys), lead + [tail - 1], False, s.n_tot)
+    hi = _lex_searchsorted(list(keys), lead + [tail + 1], True, s.n_tot)
+    return float((cum[hi.long()] - cum[lo.long()]).sum() - kt.shape[1])
 
 
 def main() -> None:
@@ -81,14 +136,18 @@ def main() -> None:
         _launch, allpairs_accelerations, allpairs_accelerations_plain,
         allpairs_accelerations_wide, source_splits)
     from nbodysim_tpu_torch.kernels.collide import (
-        allpairs_collision_deltas, collision_deltas_plain)
+        allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
+        rect_pair_deltas_plain)
+    from nbodysim_tpu_torch.kernels.collide_block import (
+        block_collision_deltas, block_collision_deltas_plain)
     from nbodysim_tpu_torch.kernels.nearfield import (
         bucket_stencil, bucket_stencil_plain)
     from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics import collisions as coll
     from nbodysim_tpu_torch.physics.forces import (
-        potential_energy, resolve_config_for_state)
+        _partial_potential, potential_energy, resolve_config_for_state)
     from nbodysim_tpu_torch.physics.integrators import make_step
-    from nbodysim_tpu_torch.scenes import uniform_disc
+    from nbodysim_tpu_torch.scenes import init_scene, uniform_disc
 
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -315,21 +374,6 @@ def main() -> None:
     say("timings", f"K2 disc N=25000 on cell-sorted input: {ms_sorted:.4f} "
         f"ms (unsorted {times[('K2', 25_000)][0]:.4f} ms); the sort and "
         f"gathers alone: {time_ms(sort_only, 20):.4f} ms")
-    # bench.py:232's input for the force headline and the tree code.
-    upos = uniform((1 << 20, 2), -30000.0, 30000.0)
-    umass = uniform((1 << 20,), 0.1, 10.0)
-    for n in (65_536, 1_048_576):
-        pos = (upos if n == 1 << 20 else
-               uniform((n, 2), -30000.0, 30000.0))
-        mass = umass if n == 1 << 20 else uniform((n,), 0.1, 10.0)
-        ms = time_ms(k1(pos, mass), 3 if n > 100_000 else 20)
-        plain = ("plain skipped at N=1M (~1e12 pairs through [2048, 4096] "
-                 "blocks: minutes)" if n > 100_000 else
-                 f"plain {n * n / time_ms(k1_plain(pos, mass), 3) * 1e3:.4e}"
-                 f" pairs/s")
-        say("timings", f"K1 uniform N={n}: {ms:.4f} ms, "
-            f"{n * n / ms * 1e3:.4e} pairs/s; {plain}")
-
     # Bounds: the larger of the bytes moved over the memory rate and the
     # operations over the peak rate of their unit (H100 SXM: 3.35 TB/s,
     # 67 TFLOP/s f32), with the MUFU rsqrt pipe at
@@ -349,6 +393,23 @@ def main() -> None:
     # (d^2), 1 add + 1 mul ((r_i + r_j)^2) = 7 flops.
     def pair_bound(pairs, nbytes):
         return bound(nbytes, 13.0 * pairs, pairs)
+
+    # bench.py:232's input for the force headline and the tree code.
+    upos = uniform((1 << 20, 2), -30000.0, 30000.0)
+    umass = uniform((1 << 20,), 0.1, 10.0)
+    for n in (65_536, 1_048_576):
+        pos = (upos if n == 1 << 20 else
+               uniform((n, 2), -30000.0, 30000.0))
+        mass = umass if n == 1 << 20 else uniform((n,), 0.1, 10.0)
+        ms = time_ms(k1(pos, mass), 3 if n > 100_000 else 20)
+        plain = ("plain skipped at N=1M (~1e12 pairs through [2048, 4096] "
+                 "blocks: minutes)" if n > 100_000 else
+                 f"plain {n * n / time_ms(k1_plain(pos, mass), 3) * 1e3:.4e}"
+                 f" pairs/s")
+        say("timings", f"K1 uniform N={n}: {ms:.4f} ms, "
+            f"{n * n / ms * 1e3:.4e} pairs/s; {plain}; bound "
+            "{:.4f} ms ({})".format(*pair_bound(float(n) * n,
+                                                4.0 * n * (3 + 2))))
 
     # -- the tree code at N = 1M ---------------------------------------------
     n1m = 1 << 20
@@ -656,6 +717,396 @@ def main() -> None:
         fail("uniform_disc N=131072 under auto did not raise; it needs the "
              "deep-overflow chain")
 
+    # -- 8. collide ----------------------------------------------------------
+    t_phase8 = time.perf_counter()
+
+    def collide_close(name, got, ref, vel, extra=""):
+        """K2's rule: within 1e-5 * max(max|v|, 10) of the plain version."""
+        tol = 1e-5 * max(float(vel.abs().max()), 10.0)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        ok = all(bool(torch.isfinite(a).all()) for a in got) and err <= tol
+        say("collide", f"{name}: max_abs_err={err:.3e} tol={tol:.3e}{extra} "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} disagrees with its plain version")
+        return err
+
+    def momentum_ok(name, mass, v0, v1):
+        p0 = (mass[:, None] * v0).sum(0)
+        p1 = (mass[:, None] * v1).sum(0)
+        drift = float((p1 - p0).abs().max())
+        tol = 1e-5 * float((mass[:, None] * v0.abs()).sum())
+        say("collide", f"{name}: momentum drift {drift:.3e} (tol {tol:.3e}) "
+            f"{'ok' if drift <= tol else 'FAIL'}")
+        require(drift <= tol, f"{name}: momentum not conserved")
+
+    def cloud(n, dim, half):
+        mass = uniform((n,), 0.5, 2.0)
+        radius = mass.pow(1 / 3) * 1.5
+        mass[::7] = 0.0
+        pos = uniform((n, dim), -half, half)
+        return (pos, uniform((n, dim), -5.0, 5.0), mass, radius,
+                torch.floor(pos / 3.0).to(torch.int32))
+
+    def overlapping_pairs(tgt, src, max_cheb):
+        d = src[0][None] - tgt[0][:, None]
+        hit = ((d * d).sum(-1) <= (tgt[3][:, None] + src[3][None]) ** 2)
+        hit &= (tgt[2][:, None] > 0) & (src[2][None] > 0)
+        if max_cheb is not None:
+            hit &= (src[4][None] - tgt[4][:, None]).abs().amax(-1) <= max_cheb
+        return int(hit.sum())
+
+    def since():
+        return f"[{time.perf_counter() - t_phase8:.1f} s into phase 8]"
+
+    def timed(fn):
+        """One call of `fn` and its time (CUDA events): the plain versions'
+        times at the large shapes come from their one comparison run."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    plain_ms = {}
+
+    def k5_case(name, tgt, src, max_cheb, need_hits):
+        got = rect_pair_deltas(tgt, src, dim=tgt[0].shape[1], impulse=1.5,
+                               max_cheb=max_cheb)
+        ref, plain_ms[name] = timed(lambda: rect_pair_deltas_plain(
+            tgt, src, dim=tgt[0].shape[1], impulse=1.5, max_cheb=max_cheb))
+        extra = ""
+        if need_hits:
+            hits = overlapping_pairs(tgt, src, max_cheb)
+            extra = f" overlapping pairs={hits}"
+            require(hits > 0, f"K5 {name}: no overlapping pair")
+        return collide_close(f"K5 {name}", got, ref, tgt[1] + ref[1], extra)
+
+    for dim, half in ((2, 37.0), (3, 24.0)):
+        tgt, src = cloud(4096, dim, half), cloud(2048, dim, half)
+        for mc in (1, None):
+            k5_case(f"{dim}D cloud 4096 <- 2048, max_cheb={mc}", tgt, src, mc,
+                    True)
+
+    # The N = 1M galaxy merger: the main path's scene.
+    n_m = 1 << 20
+    mcfg = SimConfig(n=n_m, dt=0.05, integrator="leapfrog_kdk",
+                     force_backend="cuda")
+    merger = init_scene("galaxy_merger", mcfg, device=dev)
+    bcfg = mcfg.replace(collision_broad_phase="block",
+                        collision_cell_size=0.0)
+    ms_ = coll._block_structure(merger.pos, merger.radius, bcfg)
+    mbp = coll._block_planes(merger, ms_)
+    fs = mbp.fields_s
+    bigs = ms_.bigs
+    big_src = (merger.pos[bigs.top_i], merger.vel[bigs.top_i],
+               torch.where(bigs.big_sel, merger.mass[bigs.top_i], 0.0),
+               merger.radius[bigs.top_i], ms_.cell[bigs.top_i])
+    small_src = (fs[0], fs[1], torch.where(mbp.big_s, 0.0, fs[2]), fs[3],
+                 fs[4])
+    say("collide", f"merger N={n_m}: cell {float(bigs.cell_size):.4f}, "
+        f"{int(bigs.is_big.sum())} big bodies, "
+        f"{int((~ms_.ok_blk).sum())} of {ms_.ok_blk.numel()} blocks "
+        f"uncovered")
+    k5_big_name = f"bigs <- all [{bigs.top_i.numel()} x {n_m}]"
+    # The scene's nuclei overlap no small body (no pair fires): the same
+    # shapes again with 64 smalls moved inside the nuclei.
+    big_rows = bigs.top_i[bigs.big_sel]
+    moved = torch.randperm(n_m, generator=gen, device=dev)[:64]
+    moved = moved[~mbp.big_s[moved]]
+    near = torch.arange(moved.numel(), device=dev) % big_rows.numel()
+    ang = uniform((moved.numel(),), 0.0, 2 * math.pi)
+    dist = uniform((moved.numel(),), 0.1, 0.9) * merger.radius[big_rows][near]
+    pos_in = fs[0].clone()
+    pos_in[moved] = merger.pos[big_rows][near] + dist[:, None] * torch.stack(
+        [ang.cos(), ang.sin()], 1)
+    fs_in = (pos_in,) + tuple(fs[1:])
+    k5_big_errs = [
+        k5_case(k5_big_name, big_src, small_src, None, False),
+        k5_case(f"bigs <- all, {moved.numel()} smalls inside the nuclei",
+                big_src, (pos_in,) + tuple(small_src[1:]), None, True),
+        k5_case(f"all <- bigs [{n_m} x {bigs.top_i.numel()}], "
+                f"{moved.numel()} smalls inside the nuclei", fs_in, big_src,
+                None, True)]
+    sel = torch.randperm(n_m, generator=gen, device=dev)[:coll._OVERFLOW_CAP]
+    o_src = tuple(f[sel] for f in fs)
+    k5_res_name = f"full-cap residual [{n_m} x {coll._OVERFLOW_CAP}]"
+    k5_res_err = k5_case(k5_res_name, fs, o_src, 1, False)
+    say("collide", f"K5 checks done {since()}")
+
+    # K6 and the whole block pass: kernels against the plain route.
+    def block_case(name, state, cfg):
+        s_ = coll._block_structure(state.pos, state.radius, cfg)
+        planes = coll._block_planes(state, s_).planes
+        args = (planes, s_.keys, s_.w_lo, s_.w_hi)
+        got = block_collision_deltas(*args, t_blk=s_.t_blk, impulse=1.5)
+        ref, plain_ms[name] = timed(lambda: block_collision_deltas_plain(
+            *args, t_blk=s_.t_blk, impulse=1.5))
+        over = coll.collision_block_overflow(state, cfg)
+        err = collide_close(f"K6 {name}", got, ref, state.vel,
+                            f" block overflow={over}")
+        # The pass's deltas (positions of ~3e5 would round pos + dpos to
+        # 0.03), then the pass as the step calls it.
+        kern = coll._block_deltas(state, cfg, True)
+        plain = coll._block_deltas(state, cfg, False)
+        torch.cuda.synchronize()
+        collide_close(f"block pass {name}, kernels vs plain route", kern,
+                      plain, state.vel + plain[1])
+        out = coll.resolve_collisions(state, cfg)
+        momentum_ok(f"block pass {name}", state.mass, state.vel, out.vel)
+        return err, over
+
+    k6_errs = []
+    for dim, half in ((2, 120.0), (3, 32.0)):
+        n_b = 32_768
+        pos = uniform((n_b, dim), -half, half)
+        pos[:3000] = uniform((3000, dim), 0.05, 0.95)   # one crowded cell
+        mass = uniform((n_b,), 0.5, 2.0)
+        radius = uniform((n_b,), 0.5, 1.0)
+        radius[0], mass[0] = 15.0, 100.0                 # one big body
+        blob = ParticleState.create(pos, uniform((n_b, dim), -5.0, 5.0),
+                                    mass, radius)
+        err, over = block_case(
+            f"{dim}D blob N={n_b}", blob,
+            SimConfig(n=n_b, dim=dim, collision_broad_phase="block",
+                      collision_cell_size=0.0))
+        require(over > 0, f"{dim}D blob: no uncovered block")
+        k6_errs.append(err)
+    k6_merger_name = f"merger N={n_m}"
+    k6_errs.append(block_case(k6_merger_name, merger, bcfg)[0])
+    say("collide", f"K6 and block pass checks done {since()}")
+
+    # K1 at the main path's own shape and input: the merger's N = 1M state,
+    # unsplit, against its plain version on 4096 random target rows.
+    a_m, k1_merger_ms = timed(lambda: allpairs_accelerations(
+        merger.pos, merger.mass, eps_sq=mcfg.eps_sq, g_const=mcfg.g_const))
+    rows = torch.randperm(n_m, generator=gen, device=dev)[:4096]
+    ref_rows, k1_rows_plain_ms = timed(lambda: allpairs_accelerations_plain(
+        merger.pos[rows], None, eps_sq=mcfg.eps_sq, g_const=mcfg.g_const,
+        src_pos=merger.pos, src_mass=merger.mass))
+    k1_merger_err = float((a_m[rows] - ref_rows).abs().max())
+    scale = float(ref_rows.abs().max())
+    ok = (bool(torch.isfinite(a_m).all())
+          and k1_merger_err <= 1e-5 * scale)
+    # Both against the same rows in f64: how far each f32 sum drifts.
+    ref64 = allpairs_accelerations_plain(
+        merger.pos[rows].double(), None, eps_sq=mcfg.eps_sq,
+        g_const=mcfg.g_const, src_pos=merger.pos.double(),
+        src_mass=merger.mass.double())
+    say("collide", f"K1 merger [{n_m} x {n_m}]: {k1_merger_ms:.4f} ms "
+        f"(one launch), 4096 rows against the plain version "
+        f"({k1_rows_plain_ms:.4f} ms): max_abs_err={k1_merger_err:.3e} "
+        f"max|a|={scale:.3e} tol={1e-5 * scale:.3e} "
+        f"{'ok' if ok else 'FAIL'}; against f64: kernel "
+        f"{float((a_m[rows] - ref64).abs().max()):.3e}, plain "
+        f"{float((ref_rows - ref64).abs().max()):.3e}")
+    require(ok, "K1 on the N=1M merger disagrees with its plain version")
+    del a_m
+
+    # The N = 4M merger under 'auto': one pass, timed by stage.
+    n4 = 1 << 22
+    cfg4 = SimConfig(n=n4, dt=0.05, integrator="leapfrog_kdk",
+                     force_backend="cuda")
+    merger4 = init_scene("galaxy_merger", cfg4, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cfg4 = coll.resolve_collision_phase_for_state(merger4, cfg4)
+    require((cfg4.collision_broad_phase, cfg4.collision_cell_size)
+            == ("block", 0.0), f"N=4M merger resolved to "
+            f"{cfg4.collision_broad_phase}, cell {cfg4.collision_cell_size}")
+    over4 = coll.collision_block_overflow(merger4, cfg4)
+    say("collide", f"merger N={n4} under auto: {cfg4.collision_broad_phase} "
+        f"(cell size {cfg4.collision_cell_size}; {len(caught)} warning: "
+        f"{str(caught[0].message)[:60] if caught else ''}...), block "
+        f"overflow {over4}")
+    counted = (allpairs_accelerations, allpairs_accelerations_wide,
+               allpairs_collision_deltas, bucket_stencil, rect_pair_deltas,
+               block_collision_deltas)
+    for c in counted:
+        c.launches = 0
+    coll.resolve_collisions(merger4, cfg4)
+    torch.cuda.synchronize()
+    pass4_launches = {"K5": rect_pair_deltas.launches,
+                      "K6": block_collision_deltas.launches,
+                      "other": sum(c.launches for c in counted[:4])}
+    say("collide", f"launches during one pass at N={n4}: {pass4_launches}")
+    require(pass4_launches == {"K5": 4 if over4 > 0 else 2, "K6": 1,
+                               "other": 0},
+            f"N=4M pass launches {pass4_launches}: expected K6 once, K5 "
+            f"twice for the bigs and twice for the residual")
+    pass4_ms = time_ms(lambda: coll.resolve_collisions(merger4, cfg4), 5,
+                       warmup=2)
+    s4 = coll._block_structure(merger4.pos, merger4.radius, cfg4)
+    bp4 = coll._block_planes(merger4, s4)
+    dp4, dv4 = coll._block_dense_deltas(bp4.planes, s4, cfg4, True)
+    dp4, dv4 = dp4[:n4], dv4[:n4]
+    inv4 = torch.empty_like(s4.order)
+    inv4[s4.order] = torch.arange(n4, device=dev)
+    top4 = s4.bigs.top_i
+    big4 = (merger4.pos[top4], merger4.vel[top4],
+            torch.where(s4.bigs.big_sel, merger4.mass[top4], 0.0),
+            merger4.radius[top4], s4.cell[top4])
+
+    def scatter_back():
+        inv = torch.empty_like(s4.order)
+        inv[s4.order] = torch.arange(n4, device=dev)
+        return merger4.pos + dp4[inv], merger4.vel + dv4[inv]
+
+    stages4 = {
+        "structure and sort": time_ms(lambda: coll._block_planes(
+            merger4, coll._block_structure(merger4.pos, merger4.radius,
+                                           cfg4)), 5),
+        "K6": time_ms(lambda: coll._block_dense_deltas(bp4.planes, s4, cfg4,
+                                                       True), 10),
+        "big-body K5 (2 launches)": time_ms(
+            lambda: coll._big_body_corrections(
+                dp4, dv4, bp4.fields_s, bp4.big_s, big4, s4.bigs.big_sel,
+                inv4[top4], 1.5, 2, True), 10),
+    }
+    # The residual's own launches, counted over one call on the pass's
+    # intermediates (the JSON line's residual-shape K5 entry).
+    rect_pair_deltas.launches = 0
+    if over4 > 0:
+        coll._residual_corrections(dp4, dv4, bp4.fields_s, bp4.ok_p,
+                                   bp4.big_s, 1.5, 2, True)
+        torch.cuda.synchronize()
+        residual_launches = rect_pair_deltas.launches
+        stages4["residual K5 (2 launches)"] = time_ms(
+            lambda: coll._residual_corrections(
+                dp4, dv4, bp4.fields_s, bp4.ok_p, bp4.big_s, 1.5, 2, True), 5)
+    else:
+        residual_launches = 0
+    stages4["scatter back"] = time_ms(scatter_back, 10)
+    say("collide", f"merger N={n4}: one block pass {pass4_ms:.4f} ms "
+        f"through the kernels (CUDA events, 5 passes after 2)")
+    for name, ms in stages4.items():
+        say("collide", f"  stage {name}: {ms:.4f} ms "
+            f"({100 * ms / pass4_ms:.1f}% of the pass)")
+    span4 = (s4.w_hi - s4.w_lo).clamp_min(0)
+    say("collide", f"K6 N={n4}: {k6_needed_pairs(s4, bp4.planes):.4e} pairs "
+        f"through its masks (the bound's work), "
+        f"{float(span4[s4.ok_blk].sum()) * s4.t_blk:.4e} in-span pairs "
+        f"tested, {s4.ok_blk.numel() * span4.shape[1] * (2 * s4.t_blk + 512) * s4.t_blk:.4e} "
+        f"in the TPU form's fixed windows")
+    del merger4, s4, bp4, dp4, dv4, inv4
+    say("collide", f"N=4M pass timed {since()}")
+
+    # The main path of this slice: Simulation of the N = 1M merger.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        msim = Simulation(mcfg, scene="galaxy_merger", device="cuda")
+    require(msim.config.collision_broad_phase == "block",
+            f"N=1M merger collisions resolved to "
+            f"{msim.config.collision_broad_phase}")
+    require(msim.config.force_backend == "cuda",
+            f"N=1M merger force backend {msim.config.force_backend}")
+    msim.run(1)  # warm-up
+    torch.cuda.synchronize()
+    for c in counted:
+        c.launches = 0
+    start.record()
+    msim.run(3)
+    end.record()
+    torch.cuda.synchronize()
+    merger_launches = {"K1": allpairs_accelerations.launches,
+                       "K2": allpairs_collision_deltas.launches,
+                       "K3": bucket_stencil.launches,
+                       "K4": allpairs_accelerations_wide.launches,
+                       "K5": rect_pair_deltas.launches,
+                       "K6": block_collision_deltas.launches}
+    merger_steps_per_s = 3 / (start.elapsed_time(end) / 1e3)
+    say("collide", f"launches during run(3) of the N={n_m} merger: "
+        f"{merger_launches}; {merger_steps_per_s:.4f} steps/s (CUDA events, "
+        f"after 1 warm-up step; {len(caught)} warnings at init)")
+    require(merger_launches["K1"] == 3 and merger_launches["K6"] == 3
+            and merger_launches["K5"] >= 6 and merger_launches["K5"] % 2 == 0
+            and merger_launches["K2"] == merger_launches["K3"]
+            == merger_launches["K4"] == 0,
+            f"merger kernel launches {merger_launches}: expected K1 and K6 "
+            f"once per step, K5 at least twice")
+    mst = msim.state
+    for name in ("pos", "vel", "acc"):
+        require(bool(torch.isfinite(getattr(mst, name)).all()),
+                f"merger path: non-finite {name}")
+    ke = float(kinetic_energy(mst))
+    # The potential over pairs of 65536-row slabs j >= i, off-diagonal
+    # slabs counted twice: half the pair work of potential_energy.
+    slab = 1 << 16
+    pe_sum = 0.0
+    for i0 in range(0, n_m, slab):
+        for j0 in range(i0, n_m, slab):
+            part = _partial_potential(
+                mst.pos[i0:i0 + slab], mst.mass[i0:i0 + slab],
+                mst.pos[j0:j0 + slab], mst.mass[j0:j0 + slab],
+                mcfg.eps_sq, block_size=8192)
+            pe_sum += (1.0 if i0 == j0 else 2.0) * float(part)
+    pe = -0.5 * mcfg.g_const * pe_sum
+    say("collide", f"merger frame {msim.frame}: KE={ke:.6e} PE={pe:.6e} "
+        f"{since()}")
+    require(math.isfinite(ke) and math.isfinite(pe),
+            "merger path: non-finite energies")
+
+    # Kernel and plain times at the main path's shapes (the N=1M merger).
+    k6_args = (mbp.planes, ms_.keys, ms_.w_lo, ms_.w_hi)
+    k6_ms = time_ms(lambda: block_collision_deltas(
+        *k6_args, t_blk=ms_.t_blk, impulse=1.5), 20)
+    k6_plain_ms = plain_ms[k6_merger_name]
+    # The bound's work is the pairs K6's masks let through on this data;
+    # the in-span pairs it tests and the TPU form's windows beside it.
+    span_m = (ms_.w_hi - ms_.w_lo).clamp_min(0)
+    k6_in_span = float(span_m[ms_.ok_blk].sum()) * ms_.t_blk
+    k6_pairs = k6_needed_pairs(ms_, mbp.planes)
+    n_tot = ms_.n_tot
+    k6_bnd = bound(4.0 * (n_tot * (2 * 2 + 3) + n_tot * 2 + 2 * n_tot * 2
+                          + 2 * span_m.numel()), 7.0 * k6_pairs)
+    say("collide", f"K6 merger N={n_m}: kernel {k6_ms:.4f} ms, plain "
+        f"{k6_plain_ms:.4f} ms, {k6_pairs:.4e} pairs through its masks (the "
+        f"bound's work), {k6_in_span:.4e} in-span pairs tested "
+        f"({k6_in_span / k6_ms * 1e3:.4e} pairs/s), "
+        f"{ms_.ok_blk.numel() * span_m.shape[1] * (2 * ms_.t_blk + 512) * ms_.t_blk:.4e}"
+        f" in the TPU form's windows, bound {k6_bnd[0]:.4f} ms "
+        f"({k6_bnd[1]})")
+
+    def k5_times(tgt, src, max_cheb, name):
+        kw = dict(dim=2, impulse=1.5, max_cheb=max_cheb)
+        ms = time_ms(lambda: rect_pair_deltas(tgt, src, **kw), 10)
+        plain = plain_ms[name]
+        cols = 2 + 2 + 1 + 1 + (0 if max_cheb is None else 2)
+        rows_t, rows_s = tgt[0].shape[0], src[0].shape[0]
+        needed = k5_needed_pairs(tgt, src, max_cheb)
+        bnd = bound(4.0 * (cols * (rows_t + rows_s) + 4 * rows_t),
+                    7.0 * needed)
+        return ms, plain, bnd, needed, float(rows_t) * rows_s
+
+    k5_big = k5_times(big_src, small_src, None, k5_big_name)
+    k5_res = k5_times(fs, o_src, 1, k5_res_name)
+    for name, (ms, plain, bnd, needed, tested) in (
+            (f"bigs <- all [64 x {n_m}]", k5_big),
+            (f"residual [{n_m} x {coll._OVERFLOW_CAP}]", k5_res)):
+        say("collide", f"K5 {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, {needed:.4e} pairs through its masks (the bound's work) "
+            f"of {tested:.4e} tested, bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    # One bucket pass: phase 6's N = 1M uniform input, random velocities.
+    ustate = ParticleState.create(upos, uniform((n1m, 2), -5.0, 5.0), umass)
+    ucfg = coll.resolve_collision_phase_for_state(ustate, SimConfig(n=n1m))
+    require(coll._broad_phase(ustate, ucfg) == "bucket",
+            f"N=1M uniform collisions resolved to "
+            f"{coll._broad_phase(ustate, ucfg)}")
+    bucket_ms = time_ms(lambda: coll.resolve_collisions(ustate, ucfg), 3)
+    uout = coll.resolve_collisions(ustate, ucfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(uout.pos).all()
+                 and torch.isfinite(uout.vel).all()),
+            "bucket pass: non-finite")
+    say("collide", f"bucket pass N={n1m} uniform: {bucket_ms:.4f} ms "
+        f"(overflow {coll.collision_bucket_overflow(ustate, ucfg)}, "
+        f"bodies moved {int(((uout.pos - upos).abs().sum(-1) > 0).sum())})")
+    momentum_ok("bucket pass N=1M", umass, ustate.vel, uout.vel)
+    say("collide", f"phase 8 took {time.perf_counter() - t_phase8:.1f} s")
+
     n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
     k2_bound, k2_by = bound(4.0 * n25 * (2 + 2 + 1 + 1 + 2 + 2),
@@ -686,6 +1137,21 @@ def main() -> None:
         entry("K4 allpairs_accelerations_wide", allpairs_cu,
               "nbodysim_tpu/kernels/allpairs.py:105", tree_launches["K4"],
               k4_err, *tree_k["K4"][:2], tree_k["K4"][2:]),
+        entry("K5 rect_pair_deltas (N=1M merger's big-body passes; timed at "
+              "bigs <- all, 64 x 1M)",
+              "nbodysim_tpu_torch/csrc/collide.cu",
+              "nbodysim_tpu/kernels/collide.py:250", merger_launches["K5"],
+              max(k5_big_errs), *k5_big[:3]),
+        entry("K5 rect_pair_deltas (residual; launches: the N=4M pass's "
+              "residual, timed at 1M x 16384)",
+              "nbodysim_tpu_torch/csrc/collide.cu",
+              "nbodysim_tpu/kernels/collide.py:250", residual_launches,
+              k5_res_err, *k5_res[:3]),
+        entry("K6 block_collision_deltas (merger N=1M)",
+              "nbodysim_tpu_torch/csrc/collide_block.cu",
+              "nbodysim_tpu/kernels/collide_block.py:47",
+              merger_launches["K6"], max(k6_errs), k6_ms, k6_plain_ms,
+              k6_bnd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -77,23 +77,62 @@ class Simulation:
         self.check_capacity()
 
     def check_capacity(self, when: str = "the initial state") -> bool:
-        """Host-side capacity check of the tree code's fixed-size overflow
-        residual, which silently drops near-field forces past its cap: with
-        force_backend "bh" (and the deep chain off), warn when the bucket
-        overflow exceeds it. Returns True when it does. The dense collision
-        pass ported so far has no cap (the bucket broad phase is slice 3)."""
-        if self.config.force_backend != "bh" or self.config.bh_deep_levels:
-            return False
-        over = bh_near_overflow(self.state.pos, self.state.mass, self.config)
-        if over <= _OVERFLOW_CAP:
-            return False
-        warnings.warn(
-            f"BH near-field overflow {over} exceeds the residual capacity "
-            f"{_OVERFLOW_CAP} on {when}; excess particles get no near-field "
-            f"force. Use force_backend='cuda' for this scene (the deep-"
-            f"overflow chain, bh_deep_levels=-1, is not ported yet).",
-            RuntimeWarning)
-        return True
+        """Host-side capacity checks of the fixed-size exact residuals, which
+        silently drop work past their caps. Warns (RuntimeWarning) and
+        returns True when:
+          * force_backend "bh" (deep chain off): the tree's bucket overflow
+            exceeds its residual cap (excess particles get no near field);
+          * collisions on the 2D bucket grid ('auto' or 'bucket' above the
+            dense threshold): the bucket overflow exceeds the collision
+            residual's cap;
+          * collisions on the block pass: the block-window overflow does.
+        """
+        from nbodysim_tpu_torch.physics import collisions
+
+        exceeded = False
+        cfg, state = self.config, self.state
+        if cfg.force_backend == "bh" and not cfg.bh_deep_levels:
+            over = bh_near_overflow(state.pos, state.mass, cfg)
+            if over > _OVERFLOW_CAP:
+                exceeded = True
+                warnings.warn(
+                    f"BH near-field overflow {over} exceeds the residual "
+                    f"capacity {_OVERFLOW_CAP} on {when}; excess particles "
+                    f"get no near-field force. Use force_backend='cuda' for "
+                    f"this scene (the deep-overflow chain, "
+                    f"bh_deep_levels=-1, is not ported yet).",
+                    RuntimeWarning)
+        if not cfg.enable_collisions:
+            return exceeded
+        cap = collisions._OVERFLOW_CAP
+        bp = cfg.collision_broad_phase
+        if (state.dim == 2 and bp in ("auto", "bucket")
+                and state.n > collisions.DENSE_THRESHOLD):
+            # Scenes already switched to the block pass (radius-scaled
+            # cells) have no bucket cap to exceed.
+            over = collisions.collision_bucket_overflow(state, cfg)
+            if over > cap:
+                exceeded = True
+                warnings.warn(
+                    f"collision bucket overflow {over} exceeds the residual "
+                    f"capacity {cap} on {when}; excess particles get no "
+                    f"collision response. Set collision_broad_phase='block' "
+                    f"(radius-scaled cells, full coverage) or raise "
+                    f"collision_grid_res / collision_max_neighbors.",
+                    RuntimeWarning)
+        resolves_block = bp == "block" or (
+            bp == "auto" and state.dim == 3
+            and state.n > collisions.DENSE_THRESHOLD)
+        if resolves_block:
+            over = collisions.collision_block_overflow(state, cfg)
+            if over > cap:
+                exceeded = True
+                warnings.warn(
+                    f"collision block-window overflow {over} exceeds the "
+                    f"residual capacity {cap} on {when}; excess particles "
+                    f"get no collision response. Raise "
+                    f"collision_block_size.", RuntimeWarning)
+        return exceeded
 
     @property
     def frame(self) -> int:

@@ -25,8 +25,11 @@
 // N=25k (391 blocks of 256 threads rather than 98 blocks of 256 targets).
 // The four slice sums are added in a fixed order at the end, so the result
 // is deterministic. Each slice sums one tile (64 terms) before adding it to
-// its running total, which keeps the f32 summation error near that of the
-// blocked plain version. The ragged last tile is masked by index.
+// its running total, and that total is compensated (Kahan): at N=1M a slice
+// adds 4096 tile sums, and a plain running total drifted ~1e-5 of max|a|
+// from the blocked plain version on the galaxy merger, whose nuclei
+// dominate the sums. Three more adds per tile and axis, against 64 pairs.
+// The ragged last tile is masked by index.
 //
 // Few targets, many sources (the tree code's outliers <- all, 4096 x 1M):
 // 64 blocks would leave half of the 132 SMs idle. The caller then splits
@@ -45,6 +48,15 @@ namespace {
 constexpr int kTargets = 64;   // targets per block (blockDim.x)
 constexpr int kSlices = 4;     // source slices per block (blockDim.y)
 constexpr int kTile = kTargets * kSlices;
+
+// sum += x with the running compensation c (no --use_fast_math, so nvcc
+// keeps the order of these adds).
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
+  const float y = x - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
 
 template <int DIM, bool MASK>
 __global__ void __launch_bounds__(kTile)
@@ -66,6 +78,7 @@ allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
     if (DIM == 3) zi = tgt[i * DIM + 2];
   }
   float ax = 0.f, ay = 0.f, az = 0.f;
+  float cx = 0.f, cy = 0.f, cz = 0.f;  // compensation of the running totals
 
   // This block's chunk of sources: [s_begin, s_end), chunk a multiple of
   // kTile; blockIdx.y == 0 and chunk >= s without a split.
@@ -103,9 +116,9 @@ allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
       ty_sum += w * dy;
       if (DIM == 3) tz_sum += w * dz;
     }
-    ax += tx_sum;
-    ay += ty_sum;
-    az += tz_sum;
+    kahan_add(ax, cx, tx_sum);
+    kahan_add(ay, cy, ty_sum);
+    if (DIM == 3) kahan_add(az, cz, tz_sum);
     __syncthreads();
   }
 
@@ -153,6 +166,9 @@ void launch(const float* tgt, const float* src, const float* src_mass,
 
 }  // namespace
 
+extern "C" int nb_sum_splits(const float* part, float* out, int count,
+                             int splits, void* stream);
+
 // splits >= 1 source chunks; with splits > 1, `scratch` holds
 // splits * n * dim floats.
 extern "C" int nb_allpairs_accelerations(
@@ -180,13 +196,19 @@ extern "C" int nb_allpairs_accelerations(
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (splits > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int count = n * dim;
-    sum_splits_kernel<<<(count + 255) / 256, 256, 0, st>>>(scratch, out, count,
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return nb_sum_splits(scratch, out, n * dim, splits, stream);
+}
+
+// out[k] = sum_p part[p * count + k] for k < count, p in index order: the
+// second pass of a source split (K1, K4 and K5).
+extern "C" int nb_sum_splits(const float* part, float* out, int count,
+                             int splits, void* stream) {
+  if (count <= 0 || splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  sum_splits_kernel<<<(count + 255) / 256, 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(part, out, count,
                                                            splits);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every `nbodysim_tpu_torch/csrc/*.cu` file exports plain C functions that take
+Every `nbodysim_tpu_torch/csrc/*.cu` file (with the `*.cuh` headers it
+includes) exports plain C functions that take
 device pointers, sizes, scalars and a stream, and return `cudaGetLastError()`.
 At first use each source is compiled by its own `nvcc` for Hopper (`sm_90a`),
 all of them at once, and the objects are linked into one shared library under
@@ -42,8 +43,16 @@ SIGNATURES = {
     # tgt, src, src_mass, out, scratch, n, s, dim, splits, eps_sq, g, stream
     "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                   _f, _f, _vp),
-    # pos, vel, mass, radius, dpos, dvel, n, dim, impulse, stream
-    "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp),
+    # pos, vel, mass, radius, out, n, dim, impulse, stream
+    "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp),
+    # tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad, scell, out,
+    # scratch, n, s, dim, splits, max_cheb, impulse, stream
+    "nb_rect_pair_deltas": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                            _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp),
+    # planes, keys, w_lo, w_hi, dpos, dvel, n_tot, dim, t_blk, row0, n_loc,
+    # impulse, stream
+    "nb_block_collide": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                         _f, _vp),
     # bx, by, bm, ax, ay, center_rows, res, cap, rr, eps_sq, stream
     "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp),
 }
@@ -69,7 +78,7 @@ def build() -> Path:
     digest = hashlib.sha256()
     for arg in NVCC_FLAGS:
         digest.update(arg.encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):   # the headers (.cuh) too
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib = BUILD_DIR / f"libnbodysim_kernels_{digest.hexdigest()[:16]}.so"

@@ -1,25 +1,36 @@
-"""K2: dense all-pairs collision narrow phase — CUDA kernel, wrapper, plain
-version.
+"""K2 and K5: the collision narrow phase of targets against sources — CUDA
+kernel, wrappers, plain versions.
 
-Replaces the TPU kernel `nbodysim_tpu/kernels/collide.py:_collide_kernel`
-(wrapper `allpairs_collision_deltas`). The kernel is `csrc/collide.cu`; its
-header says what bounds it on the H100 and how its design answers that.
+Replaces the TPU kernels `nbodysim_tpu/kernels/collide.py:_collide_kernel`
+(wrapper `allpairs_collision_deltas`, K2) and `_rect_kernel` (wrapper
+`rect_pair_deltas`, K5). Both are one CUDA kernel, `csrc/collide.cu`,
+instantiated with and without K5's masks; its header says what bounds it on
+the H100 and how its design answers that.
 
-  * `allpairs_collision_deltas` — the wrapper: Jacobi (dpos, dvel) for every
-    particle. On a CUDA tensor it launches the kernel (or raises); on a CPU
-    tensor, and only there, it runs the plain version.
+  * `allpairs_collision_deltas` — K2's wrapper: Jacobi (dpos, dvel) for every
+    particle against all of them. On a CUDA tensor it launches the kernel (or
+    raises); on a CPU tensor, and only there, it runs the plain version.
     `allpairs_collision_deltas.launches` counts kernel launches.
   * `collision_deltas_plain` — the same function in plain torch, blocked,
     built on `_pair_deltas` (the port of `physics/collisions._pair_deltas`).
+  * `rect_pair_deltas` — K5's wrapper: target-side deltas of n targets
+    against m separate sources, masked to both masses > 0 and, unless
+    `max_cheb` is None, to a Chebyshev cell distance <= `max_cheb`; the exact
+    big-body and overflow passes of the large-N broad phases. Its own count,
+    `rect_pair_deltas.launches`.
+  * `rect_pair_deltas_plain` — K5's plain version: the body of the JAX
+    package's `_cheb_pair_deltas_blocked` over [2048, 2048] blocks.
 
-The TPU wrapper sorted particles by a coarse cell key so that its per-tile
-skip fired; the CUDA kernel branches per pair and takes particles in the
-order given.
+The TPU wrapper of K2 sorted particles by a coarse cell key so that its
+per-tile skip fired; the CUDA kernel branches per pair and takes particles in
+the order given. K5's packed [N, 16] IO and its float compare of cells were
+TPU layouts; the kernel takes the fields as they are and compares int32
+cells.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -133,17 +144,117 @@ def allpairs_collision_deltas(
         raise ValueError("K2 indexes with 32-bit ints: N * D must be < 2^31")
     if n == 0:
         return torch.zeros_like(p), torch.zeros_like(p)
-    dpos = torch.empty_like(p)
-    dvel = torch.empty_like(p)
+    out = torch.empty((2, n, dim), dtype=torch.float32, device=device)
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.nb_collision_deltas(
             p.data_ptr(), v.data_ptr(), m.data_ptr(), r.data_ptr(),
-            dpos.data_ptr(), dvel.data_ptr(), n, dim, float(impulse), stream)
+            out.data_ptr(), n, dim, float(impulse), stream)
     check(status, "nb_collision_deltas")
     allpairs_collision_deltas.launches += 1
-    return dpos, dvel
+    return out[0], out[1]
 
 
 allpairs_collision_deltas.launches = 0
+
+
+def rect_pair_deltas_plain(
+    tgt: Tuple[torch.Tensor, ...],
+    src: Tuple[torch.Tensor, ...],
+    *,
+    dim: int,
+    impulse: float,
+    max_cheb: Optional[int] = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch K5: target-side (dpos, dvel) [n, D] of `tgt` against
+    `src`, each a (pos [., D], vel, mass [.], radius [.], cell [., D] int)
+    tuple; zero-mass rows on either side are inert; with `max_cheb` set,
+    only pairs whose cells are within that Chebyshev distance. Blocked over
+    both axes (temps <= [2048, 2048, D])."""
+
+    def kernel(tgt_blk, src_blk):
+        tp, tv, tm, tr, tc = tgt_blk
+        sp, sv, sm, sr, sc = src_blk
+        d = sp[None, :, :] - tp[:, None, :]
+        v = sv[None, :, :] - tv[:, None, :]
+        msum = tm[:, None] + sm[None, :]
+        w1 = sm[None, :] / torch.where(msum > 0.0, msum, 1.0)
+        r = tr[:, None] + sr[None, :]
+        valid = (sm[None, :] > 0.0) & (tm[:, None] > 0.0)
+        if max_cheb is not None:
+            cheb = (sc[None, :, :] - tc[:, None, :]).abs().amax(-1)
+            valid = valid & (cheb <= max_cheb)
+        dpos, dvel = _pair_deltas(d, v, w1, r, valid, impulse)
+        return dpos.sum(1), dvel.sum(1)
+
+    return pairwise_blocked(kernel, tgt, src, out_dims=((dim,), (dim,)),
+                            dtype=tgt[0].dtype, bs_t=2048, bs_s=2048)
+
+
+def rect_pair_deltas(
+    tgt: Tuple[torch.Tensor, ...],
+    src: Tuple[torch.Tensor, ...],
+    *,
+    dim: int,
+    impulse: float,
+    max_cheb: Optional[int] = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: target-side collision deltas (dpos, dvel), [n, D] f32 each, of
+    `tgt` against `src` ((pos, vel, mass, radius, cell) tuples). On a CUDA
+    tensor it launches the kernel (or raises); on a CPU tensor it runs the
+    plain version."""
+    if tgt[0].device.type == "cpu":
+        return rect_pair_deltas_plain(tgt, src, dim=dim, impulse=impulse,
+                                      max_cheb=max_cheb)
+    if tgt[0].device.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {tgt[0].device}")
+    from nbodysim_tpu_torch.kernels._build import check, f32_args, library
+    from nbodysim_tpu_torch.kernels.allpairs import source_splits
+
+    device = tgt[0].device
+    tp, tv, tm, tr, sp, sv, sm, sr = f32_args(device, *tgt[:4], *src[:4])
+    n, m = tp.shape[0], sp.shape[0]
+    for name, (p, v, ms, rd, c), rows in (("tgt", (tp, tv, tm, tr, tgt[4]), n),
+                                          ("src", (sp, sv, sm, sr, src[4]),
+                                           m)):
+        if (dim not in (2, 3) or p.shape != (rows, dim)
+                or v.shape != (rows, dim) or ms.shape != (rows,)
+                or rd.shape != (rows,) or tuple(c.shape) != (rows, dim)):
+            raise ValueError(
+                f"{name} shapes {[tuple(a.shape) for a in (p, v, ms, rd, c)]}"
+                f": expected [n, D], [n, D], [n], [n], [n, D], D = {dim}")
+    if max(n, m) * dim >= 2 ** 31:
+        raise ValueError("K5 indexes with 32-bit ints: n * D must be < 2^31")
+    if n == 0 or m == 0:
+        return torch.zeros_like(tp), torch.zeros_like(tp)
+    if max_cheb is None:
+        tc = sc = None
+    else:
+        if max_cheb < 0:
+            raise ValueError(f"max_cheb must be >= 0 or None, got {max_cheb}")
+        for c in (tgt[4], src[4]):
+            if c.device != device:
+                raise ValueError(f"tensor on {c.device}, expected {device}")
+        tc, sc = (c.to(torch.int32).contiguous() for c in (tgt[4], src[4]))
+    splits = source_splits(n, m, device)
+    out = torch.empty((2, n, dim), dtype=torch.float32, device=device)
+    scratch = (torch.empty((splits, 2, n, dim), dtype=torch.float32,
+                           device=device) if splits > 1 else None)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.nb_rect_pair_deltas(
+            tp.data_ptr(), tv.data_ptr(), tm.data_ptr(), tr.data_ptr(),
+            None if tc is None else tc.data_ptr(), sp.data_ptr(),
+            sv.data_ptr(), sm.data_ptr(), sr.data_ptr(),
+            None if sc is None else sc.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, m, dim,
+            splits, -1 if max_cheb is None else int(max_cheb),
+            float(impulse), stream)
+    check(status, "nb_rect_pair_deltas")
+    rect_pair_deltas.launches += 1
+    return out[0], out[1]
+
+
+rect_pair_deltas.launches = 0

@@ -1,7 +1,7 @@
 """Procedural initial-condition scenes (port of `nbodysim_tpu.scenes`).
 
-Ported: `uniform_disc` (the reference's flagship scene), `kepler` and
-`kepler_system`. The other scenes of the JAX package keep their names here
+Ported: `uniform_disc` (the reference's flagship scene), `kepler`,
+`kepler_system` and `galaxy_merger` (BASELINE config 5). The other scenes of the JAX package keep their names here
 and raise NotImplementedError until they are ported (ROADMAP Queue A).
 Every constructor takes the target `device` explicitly.
 """
@@ -14,21 +14,23 @@ from typing import Callable, Dict
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.state import ParticleState
 from nbodysim_tpu_torch.scenes.disc import uniform_disc
+from nbodysim_tpu_torch.scenes.galaxy import galaxy_merger
 from nbodysim_tpu_torch.scenes.kepler import kepler_orbit, kepler_system
 
 
 def _not_ported(name: str, config: SimConfig, **kwargs) -> ParticleState:
     raise NotImplementedError(
         f"scene {name!r} is not ported to nbodysim_tpu_torch yet "
-        f"(ported: uniform_disc, kepler, kepler_system)")
+        f"(ported: uniform_disc, kepler, kepler_system, galaxy_merger)")
 
 
 SCENES: Dict[str, Callable[..., ParticleState]] = {
     "uniform_disc": uniform_disc,
     "kepler": kepler_orbit,
     "kepler_system": kepler_system,
+    "galaxy_merger": galaxy_merger,
     **{name: functools.partial(_not_ported, name)
-       for name in ("plummer", "galaxy_merger", "spiral", "kuzmin")},
+       for name in ("plummer", "spiral", "kuzmin")},
 }
 
 
@@ -44,6 +46,7 @@ __all__ = [
     "SCENES",
     "init_scene",
     "uniform_disc",
+    "galaxy_merger",
     "kepler_orbit",
     "kepler_system",
 ]

@@ -166,28 +166,51 @@ def _forbid_pair_work(monkeypatch):
 
 @pytest.mark.parametrize("phase", ["auto", "bucket", "hash", "block"])
 def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
+    """'hash' (the sorted spatial hash, ROADMAP item 11) raises before any
+    pair work; 'auto' past N = 65,536, 'bucket' and 'block' are ported and
+    resolve to their passes (the 70,000 bodies at one point overflow the
+    bucket grid, so 'auto' switches to the block pass)."""
     _forbid_pair_work(monkeypatch)
     n_bodies = 70_000 if phase == "auto" else 64
     state = nt.ParticleState.create(
         torch.zeros(n_bodies, 2), torch.zeros(n_bodies, 2),
         torch.ones(n_bodies))
-    cfg = nt.SimConfig(n=n_bodies, collision_broad_phase=phase)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tcoll.resolve_collisions(state, cfg)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tcoll.resolve_collision_phase_for_state(state, cfg)
-    if phase == "auto":
-        with pytest.raises(NotImplementedError, match="slice 3"):
+    # A 16^2 bucket grid keeps the 'bucket' case's stencil small on the CPU.
+    cfg = nt.SimConfig(n=n_bodies, collision_broad_phase=phase,
+                       collision_grid_res=16)
+    if phase == "hash":
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tcoll.resolve_collisions(state, cfg)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tcoll.resolve_collision_phase_for_state(state, cfg)
+        with pytest.raises(NotImplementedError, match="item 11"):
             nt.Simulation(cfg, state=state, device=CPU)
+        return
+    if phase == "auto":
+        assert tcoll._broad_phase(state, cfg) == "bucket"
+        with pytest.warns(RuntimeWarning):   # the switch, then the overflow
+            sim = nt.Simulation(cfg, state=state, device=CPU)
+        assert (sim.config.collision_broad_phase,
+                sim.config.collision_cell_size) == ("block", 0.0)
+        assert tcoll._broad_phase(state, sim.config) == "block"
+        return
+    resolved = tcoll.resolve_collision_phase_for_state(state, cfg)
+    assert resolved is cfg
+    assert tcoll._broad_phase(state, resolved) == phase
+    # Coincident bodies at rest: every pair is a no-op.
+    out = tcoll.resolve_collisions(state, cfg)
+    assert torch.equal(out.pos, state.pos) and torch.equal(out.vel, state.vel)
 
 
 def test_scene_errors():
     with pytest.raises(KeyError, match="uniform_disc"):
         nt.init_scene("nope", nt.SimConfig(), device=CPU)
-    for name in ("plummer", "galaxy_merger", "spiral", "kuzmin"):
+    for name in ("plummer", "spiral", "kuzmin"):
         assert name in nt.scenes.SCENES
         with pytest.raises(NotImplementedError):
             nt.init_scene(name, nt.SimConfig(n=64), device=CPU)
+    assert nt.init_scene("galaxy_merger", nt.SimConfig(n=64),
+                         device=CPU).n == 64
 
 
 def test_package_imports_no_jax():

@@ -1,7 +1,7 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K4 against their
+"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K6 against their
 plain torch versions on the card, their launch counts, the N=25k main path,
-and the tree code through the kernels against the same code through the
-plain versions.
+the tree code and the large-N collision passes through the kernels against
+the same code through the plain versions.
 
 Marked `cuda`; every test skips without a CUDA device. On a machine with a
 card and without JAX (tests/conftest.py imports JAX), run:
@@ -17,9 +17,13 @@ from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
 from nbodysim_tpu_torch.kernels.collide import (
-    allpairs_collision_deltas, collision_deltas_plain)
+    allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
+    rect_pair_deltas_plain)
+from nbodysim_tpu_torch.kernels.collide_block import (
+    block_collision_deltas, block_collision_deltas_plain)
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil, bucket_stencil_plain)
+from nbodysim_tpu_torch.physics import collisions as coll
 from nbodysim_tpu_torch.physics.barneshut import bh_accelerations
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +126,13 @@ def test_launch_counters_count_kernel_launches_only(dev):
     assert bucket_stencil.launches == k3 + 1
     assert allpairs_accelerations_wide.launches == k4 + 1
     assert allpairs_accelerations.launches == k1 + 1
+    k5 = rect_pair_deltas.launches
+    cell = torch.zeros(100, 2, dtype=torch.int32, device=dev)
+    fields = (pos, pos, mass, mass, cell)
+    rect_pair_deltas(fields, fields, dim=2, impulse=1.5)
+    rect_pair_deltas(tuple(f.cpu() for f in fields),
+                     tuple(f.cpu() for f in fields), dim=2, impulse=1.5)
+    assert rect_pair_deltas.launches == k5 + 1
 
 
 def test_wrappers_reject_malformed_input(dev):
@@ -226,3 +237,109 @@ def test_tree_code_runs_through_the_kernels(dev):
     sim.run(2)
     assert sim.frame == 2 and bool(torch.isfinite(sim.state.pos).all())
 
+
+
+def _cloud(g, n, dim, half):
+    """A colliding cloud: radius 1.5 cbrt(m), every 7th mass 0."""
+    mass = _uniform(g, (n,), 0.5, 2.0)
+    radius = mass.pow(1 / 3) * 1.5
+    mass[::7] = 0.0
+    return (_uniform(g, (n, dim), -half, half),
+            _uniform(g, (n, dim), -5.0, 5.0), mass, radius)
+
+
+def _close(got, ref, vel):
+    """K2's rule: within 1e-5 * max(max|v|, 10) of the plain version."""
+    tol = 1e-5 * max(float(vel.abs().max()), 10.0)
+    return all(bool(torch.isfinite(a).all())
+               and float((a - b).abs().max()) <= tol
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("max_cheb", [1, None])
+@pytest.mark.parametrize("n,m", [(4096, 1500), (64, 200_000)])
+def test_k5_matches_plain(dev, dim, max_cheb, n, m):
+    """Targets against separate sources; 64 x 200k splits the sources over a
+    second grid axis."""
+    g = _gen(dev, 10 + dim)
+    half = 37.0 if dim == 2 else 24.0
+    if m > n:
+        half *= (m / 4096) ** (1 / dim)
+    src = _cloud(g, m, dim, half)
+    tgt = _cloud(g, n, dim, half)
+    cell_of = (lambda p: torch.floor(p / 3.0).to(torch.int32))
+    tgt, src = tgt + (cell_of(tgt[0]),), src + (cell_of(src[0]),)
+    got = rect_pair_deltas(tgt, src, dim=dim, impulse=1.5, max_cheb=max_cheb)
+    ref = rect_pair_deltas_plain(tgt, src, dim=dim, impulse=1.5,
+                                 max_cheb=max_cheb)
+    torch.cuda.synchronize()
+    assert _close(got, ref, tgt[1] + ref[1])
+    assert float(ref[1].abs().max()) > 1e-3   # overlaps were resolved
+
+
+def _block_case(dev, dim, residual):
+    """A colliding blob for the block pass; with `residual`, 1500 bodies in
+    one cell make some blocks uncovered."""
+    g = _gen(dev, 20 + dim)
+    n = 8192
+    half = 60.0 if dim == 2 else 20.0
+    pos = _uniform(g, (n, dim), -half, half)
+    if residual:
+        pos[:1500] = _uniform(g, (1500, dim), 0.05, 0.95)
+    mass = _uniform(g, (n,), 0.5, 2.0)
+    radius = _uniform(g, (n,), 0.5, 1.0)
+    radius[0], mass[0] = 15.0, 100.0   # one big body
+    state = nt.ParticleState.create(pos, _uniform(g, (n, dim), -5.0, 5.0),
+                                    mass, radius)
+    cfg = nt.SimConfig(n=n, dim=dim, collision_broad_phase="block",
+                       collision_cell_size=0.0)
+    return state, cfg
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("residual", [False, True])
+def test_k6_and_block_pass_match_plain(dev, dim, residual):
+    state, cfg = _block_case(dev, dim, residual)
+    s = coll._block_structure(state.pos, state.radius, cfg)
+    planes = coll._block_planes(state, s).planes
+    args = (planes, s.keys, s.w_lo, s.w_hi)
+    got = block_collision_deltas(*args, t_blk=s.t_blk, impulse=1.5)
+    ref = block_collision_deltas_plain(*args, t_blk=s.t_blk, impulse=1.5)
+    band = block_collision_deltas(*args, t_blk=s.t_blk, impulse=1.5, blk0=2,
+                                  nb_loc=3)
+    torch.cuda.synchronize()
+    assert _close(got, ref, state.vel)
+    rows = slice(2 * s.t_blk, 5 * s.t_blk)
+    assert all(torch.equal(b, a[rows]) for a, b in zip(got, band))
+    over = coll.collision_block_overflow(state, cfg)
+    assert (over > 0) == residual
+    counts = (block_collision_deltas.launches, rect_pair_deltas.launches)
+    out = coll.resolve_collisions(state, cfg)
+    # One K6 launch; two big-body K5 launches, two more for the residual.
+    assert (block_collision_deltas.launches - counts[0],
+            rect_pair_deltas.launches - counts[1]) == \
+        (1, 4 if residual else 2)
+    plain = coll.resolve_collisions(
+        state, cfg.replace(collision_backend="torch"))
+    torch.cuda.synchronize()
+    assert _close((out.pos, out.vel), (plain.pos, plain.vel), plain.vel)
+    assert float((out.vel - state.vel).abs().max()) > 0.1
+    p0 = (state.mass[:, None] * state.vel).sum(0)
+    p1 = (state.mass[:, None] * out.vel).sum(0)
+    assert float((p1 - p0).abs().max()) <= \
+        1e-5 * float((state.mass[:, None] * state.vel.abs()).sum())
+
+
+def test_merger_resolves_to_block_and_steps(dev):
+    """The galaxy merger at N = 131,072 under 'auto': the bucket grid would
+    overflow, so collisions run the block pass through K6 and K5."""
+    cfg = nt.SimConfig(n=1 << 17, dt=0.05, integrator="leapfrog_kdk",
+                       force_backend="cuda")
+    with pytest.warns(RuntimeWarning, match="block"):
+        sim = nt.Simulation(cfg, scene="galaxy_merger", device=dev)
+    assert sim.config.collision_broad_phase == "block"
+    k6 = block_collision_deltas.launches
+    sim.run(2)
+    assert block_collision_deltas.launches - k6 == 2
+    assert bool(torch.isfinite(sim.state.pos).all())
