@@ -47,7 +47,20 @@ Phases, each printing its own lines:
                 "cuda", collisions resolved to the block pass): 1 warm-up
                 step, then run(3) with K1 and K6 launched once per step and
                 K5 at least twice; one bucket pass on phase 6's N=1M uniform
-                input with random velocities under 'auto'.
+                input with random velocities under 'auto';
+  9. tree3d   — K7 against its plain version on random partially filled 3D
+                bucket grids (rr = 1..4, eps = 0) and on the N=1M cube's
+                grid, K1 at [4096 x 1M] and K4 at [1M x 4096] in 3D, the
+                octree eval at N=1,048,576 uniform +-3e4 (profiling.py:99's
+                input; its bucket overflow and residual tier printed) through
+                the kernels against the plain route (1e-5 * max|a|) and
+                against exact K1 forces on 4096 rows (median relative error
+                < 1.5e-2), one eval timed whole and by stage with its device
+                idle share, Simulation(SimConfig(n=1M, dim=3,
+                enable_collisions=False)) under 'auto' running 20 steps with
+                K1, K4 and K7 launched exactly once per step, and a 3D
+                Plummer sphere at N=131,072 raising NotImplementedError (it
+                needs the deep-overflow chain, not ported).
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -141,8 +154,10 @@ def main() -> None:
     from nbodysim_tpu_torch.kernels.collide_block import (
         block_collision_deltas, block_collision_deltas_plain)
     from nbodysim_tpu_torch.kernels.nearfield import (
-        bucket_stencil, bucket_stencil_plain)
+        bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
+        bucket_stencil_plain)
     from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
     from nbodysim_tpu_torch.physics import collisions as coll
     from nbodysim_tpu_torch.physics.forces import (
         _partial_potential, potential_energy, resolve_config_for_state)
@@ -480,8 +495,8 @@ def main() -> None:
     nax, nay = bucket_stencil(*buckets.grid, rr=rr, eps_sq=eps,
                               center_rows=res)
     stages["bucket gather"] = time_ms(
-        lambda: bh._bucket_gather(buckets, nax, nay, res, cap), 10)
-    acc_s = bh._bucket_gather(buckets, nax, nay, res, cap)
+        lambda: bh._bucket_gather(buckets, (nax, nay), res, cap), 10)
+    acc_s = bh._bucket_gather(buckets, (nax, nay), res, cap)
     overflow = int(buckets.overflow)
     stages[f"residual (overflow {overflow})"] = time_ms(
         lambda: bh._overflow_residual(buckets, acc_s, eps, rr), 3)
@@ -1107,6 +1122,298 @@ def main() -> None:
     momentum_ok("bucket pass N=1M", umass, ustate.vel, uout.vel)
     say("collide", f"phase 8 took {time.perf_counter() - t_phase8:.1f} s")
 
+    # -- 9. tree3d -----------------------------------------------------------
+    t_phase9 = time.perf_counter()
+
+    def k7_case(name, grid, eps_sq, rows, r):
+        got = bucket_stencil3(*grid, rr=r, eps_sq=eps_sq, center_rows=rows)
+        ref = bucket_stencil3_plain(*grid, r, eps_sq, rows)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(a).all()) for a in got),
+                f"K7 {name}: non-finite")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        scale = max(float(b.abs().max()) for b in ref)
+        ok = err <= 1e-5 * scale
+        say("tree3d", f"K7 {name}: max_abs_err={err:.3e} max|a|={scale:.3e} "
+            f"tol={1e-5 * scale:.3e} {'ok' if ok else 'FAIL'}")
+        require(ok, f"K7 {name} disagrees with its plain version")
+        return err
+
+    def random_grid3(rows, width, slots, r, fill):
+        shape = (rows + 2 * r, width, width, slots)
+        m = uniform(shape, 0.0, 2.0)
+        m = torch.where(torch.rand(shape, generator=gen, device=dev) < fill,
+                        m, 0.0)
+        return tuple(uniform(shape, -5.0, 5.0) for _ in range(3)) + (m,)
+
+    k7_errs = [
+        k7_case(f"random 30%-filled 64^3 x 16, rr={r}",
+                random_grid3(64, 64, 16, r, 0.3), 1.0, 64, r)
+        for r in (1, 2)]
+    k7_errs += [
+        k7_case("random 30%-filled 20x21x21 x 16, rr=3",
+                random_grid3(20, 21, 16, 3, 0.3), 1.0, 20, 3),
+        k7_case("random 30%-filled 20x21x21 x 16, rr=4",
+                random_grid3(20, 21, 16, 4, 0.3), 1.0, 20, 4),
+        k7_case("random 13x18x18 x 16, rr=1, eps=0",
+                random_grid3(13, 18, 16, 1, 0.3), 0.0, 13, 1),
+        k7_case("random 9x11x11 x 8, rr=4, eps=0",
+                random_grid3(9, 11, 8, 4, 0.3), 0.0, 9, 4),
+    ]
+
+    # The JAX package's 3D headline input (diagnostics/profiling.py:99-101).
+    n3 = 1 << 20
+    cfg3 = SimConfig(n=n3, dim=3, enable_collisions=False)
+    pos3 = uniform((n3, 3), -30000.0, 30000.0)
+    mass3 = uniform((n3,), 0.1, 10.0)
+    levels3 = bh3._resolve_levels3(cfg3, n3)
+    radius3 = bh3._resolve_radius3(cfg3)
+    rr3, res3 = radius3 - 1, 1 << levels3
+
+    def tier(over):
+        if over == 0:
+            return "none (no residual pass)"
+        if over <= min(n3, bh._OVERFLOW_SMALL):
+            return f"small ({bh._OVERFLOW_SMALL}-wide)"
+        return f"full ({min(n3, bh._OVERFLOW_CAP)}-wide)"
+
+    over3 = bh3.bh3_near_overflow(pos3, mass3, cfg3)
+    say("tree3d", f"uniform cube N={n3} +-3e4: {res3}^3 cells (L={levels3}), "
+        f"R={radius3}; bucket overflow {over3}, residual tier {tier(over3)}")
+
+    ext3 = bh._extract_heavy_outliers(pos3, mass3)
+    out3 = ext3["out_i"]
+    opos3 = pos3[out3]
+    k1_src3 = torch.where(ext3["is_heavy"], 0.0, mass3)
+    k4_src3 = torch.where(ext3["out_sel"] & ~ext3["is_heavy"][out3],
+                          mass3[out3], 0.0)
+    k4_err3 = rect_case(
+        f"K4 3D bulk <- outliers [{n3} x {opos3.shape[0]}]",
+        lambda t, sp, sm: allpairs_accelerations_wide(
+            t, sp, sm, eps_sq=eps, g_const=gc), pos3, opos3, k4_src3)
+    k1_err3 = rect_case(
+        f"K1 3D outliers <- all [{opos3.shape[0]} x {n3}]",
+        lambda t, sp, sm: allpairs_accelerations(
+            t, None, eps_sq=eps, g_const=gc, src_pos=sp, src_mass=sm),
+        opos3, pos3, k1_src3)
+
+    grids3, corner3, size3, ci3, flat3 = bh3._build_pyramid3(
+        ext3["bulk_pos"], ext3["tree_mass"], levels3)
+    flat_nf3 = bh._outlier_flat_ids(flat3, ext3["is_out"], res3 ** 3)
+    b3 = bh._bucket_grid(pos3, ext3["tree_mass"], ci3, flat_nf3, res3, cap,
+                         rr3)
+    k7_errs.append(k7_case(
+        f"the N=1M cube's grid {res3}^3 x {cap}, rr={rr3}", b3.grid, eps,
+        res3, rr3))
+
+    a3_kern = bh3.bh3_accelerations(pos3, mass3, cfg3)
+    a3_plain, tree3_plain_ms = timed(lambda: bh3.bh3_accelerations(
+        pos3, mass3, cfg3, use_kernels=False))
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(a3_kern).all()), "3D tree eval: non-finite")
+    err3 = float((a3_kern - a3_plain).abs().max())
+    scale3 = float(a3_plain.abs().max())
+    say("tree3d", f"octree eval N={n3} kernels vs plain route: max_abs_err="
+        f"{err3:.3e} max|a|={scale3:.3e} tol={1e-5 * scale3:.3e} (index_add_ "
+        f"atomics vary the pyramid's last bits) "
+        f"{'ok' if err3 <= 1e-5 * scale3 else 'FAIL'}")
+    require(err3 <= 1e-5 * scale3, "3D tree eval through the kernels "
+            "disagrees with the plain route")
+    rows3 = torch.randperm(n3, generator=gen, device=dev)[:4096]
+    exact3 = allpairs_accelerations(pos3[rows3], None, eps_sq=eps,
+                                    g_const=gc, src_pos=pos3,
+                                    src_mass=mass3)
+    rel3 = ((a3_kern[rows3] - exact3).norm(dim=1)
+            / (exact3.norm(dim=1) + 1e-12))
+    med3 = float(rel3.median())
+    say("tree3d", f"octree vs exact K1 on 4096 rows: median relative error "
+        f"{med3:.4e}, 99th percentile "
+        f"{float(rel3.kthvalue(int(0.99 * 4096)).values):.4e} (bound: "
+        f"median < 1.5e-2) {'ok' if med3 < 1.5e-2 else 'FAIL'}")
+    require(med3 < 1.5e-2, "3D tree forces too far from the exact ones")
+    del a3_kern, a3_plain
+
+    # One eval timed whole, and each stage alone on its own intermediates.
+    tree3_ms = time_ms(lambda: bh3.bh3_accelerations(pos3, mass3, cfg3), 10,
+                       warmup=2)
+    stages3 = {
+        "extraction": time_ms(
+            lambda: bh._extract_heavy_outliers(pos3, mass3), 10),
+        "heavy coupling": time_ms(lambda: bh.heavy_coupling(
+            pos3, ext3["h_pos"], ext3["h_mass"], eps, gc), 10),
+        "K1 outliers <- all": time_ms(lambda: allpairs_accelerations(
+            opos3, None, eps_sq=eps, g_const=gc, src_pos=pos3,
+            src_mass=k1_src3), 10),
+        "K4 bulk <- outliers": time_ms(lambda: allpairs_accelerations_wide(
+            pos3, opos3, k4_src3, eps_sq=eps, g_const=gc), 10),
+        "pyramid": time_ms(lambda: bh3._build_pyramid3(
+            ext3["bulk_pos"], ext3["tree_mass"], levels3), 10),
+    }
+    terms3 = {}
+    for lv in range(2, levels3 + 1):
+        stages3[f"M2L level {lv}"] = time_ms(lambda: bh3._m2l_level3(
+            grids3[lv], corner3, size3, eps, radius3), 10)
+        terms3[lv] = bh3._m2l_level3(grids3[lv], corner3, size3, eps,
+                                     radius3)
+
+    def l2l3():
+        local = terms3[2]
+        for lv in range(3, levels3 + 1):
+            up = bh3._l2l_upsample3(local, size3 / (1 << lv))
+            local = tuple(u + t for u, t in zip(up, terms3[lv]))
+        return local
+
+    local3 = l2l3()
+    stages3["L2L"] = time_ms(l2l3, 10)
+    stages3["L2P"] = time_ms(lambda: bh3._l2p_eval3(
+        local3, ci3, pos3, corner3, size3, levels3), 10)
+    stages3["sort and bucket scatter"] = time_ms(lambda: bh._bucket_grid(
+        pos3, ext3["tree_mass"], ci3, flat_nf3, res3, cap, rr3), 10)
+    stages3["K7 near field"] = time_ms(lambda: bucket_stencil3(
+        *b3.grid, rr=rr3, eps_sq=eps, center_rows=res3), 20)
+    nacc3 = bucket_stencil3(*b3.grid, rr=rr3, eps_sq=eps, center_rows=res3)
+    stages3["bucket gather"] = time_ms(
+        lambda: bh._bucket_gather(b3, nacc3, res3, cap), 10)
+    acc_s3 = bh._bucket_gather(b3, nacc3, res3, cap)
+    stages3[f"residual (overflow {int(b3.overflow)})"] = time_ms(
+        lambda: bh._overflow_residual(b3, acc_s3, eps, rr3), 3)
+    residual3_small_ms = time_ms(
+        lambda: bh._overflow_residual(
+            b3._replace(overflow=torch.ones((), device=dev)), acc_s3, eps,
+            rr3), 3)
+    say("timings", f"octree eval N={n3} uniform (L={levels3}, R={radius3}): "
+        f"{tree3_ms:.4f} ms through the kernels "
+        f"({n3 * n3 / tree3_ms * 1e3:.4e} pairs-equivalent/s, N^2/t), "
+        f"{tree3_plain_ms:.4f} ms through the plain versions (one eval)")
+    for name, ms in stages3.items():
+        say("timings", f"  octree stage {name}: {ms:.4f} ms "
+            f"({100 * ms / tree3_ms:.1f}% of the eval)")
+    say("timings", f"  stages sum to {sum(stages3.values()):.4f} ms against "
+        f"the eval's {tree3_ms:.4f}; the residual's small tier (for an "
+        f"overflow of 1-1024) takes {residual3_small_ms:.4f} ms")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof3:
+        for _ in range(3):
+            bh3.bh3_accelerations(pos3, mass3, cfg3)
+        torch.cuda.synchronize()
+    spans3 = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof3.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy3_us, last_end = 0.0, -math.inf
+    for a, b in spans3:
+        if b > last_end:
+            busy3_us += b - max(a, last_end)
+            last_end = b
+    if spans3:
+        busy3_ms = busy3_us / 3e3
+        say("timings", f"octree eval device busy {busy3_ms:.4f} ms per eval "
+            f"(torch.profiler, {len(spans3)} device rows over 3 evals): "
+            f"{100 * busy3_ms / tree3_ms:.1f}% of the unprofiled "
+            f"{tree3_ms:.4f} ms, so the device idles "
+            f"{100 * (1 - busy3_ms / tree3_ms):.1f}%")
+    else:
+        say("timings", "octree eval device busy: not measured (the profiler "
+            "recorded no device rows)")
+
+    # K7 at the eval's shape: kernel, plain, bound. A 3D softened pair: 3
+    # sub, d^2 + eps (1 mul, 3 FMA), 3 mul, 3 FMA = 19 flops, one rsqrt.
+    def pair_bound3(pairs, nbytes):
+        return bound(nbytes, 19.0 * pairs, pairs)
+
+    occ3 = F.pad((b3.grid[3] != 0).sum(-1).to(torch.float64),
+                 (rr3, rr3, rr3, rr3))
+    box3 = sum(occ3[ox:ox + res3, oy:oy + res3, oz:oz + res3]
+               for ox in range(2 * rr3 + 1) for oy in range(2 * rr3 + 1)
+               for oz in range(2 * rr3 + 1))
+    k7_pairs = float((occ3[rr3:rr3 + res3, rr3:rr3 + res3, rr3:rr3 + res3]
+                      * box3).sum())
+    k7_evaluated = float(cap * box3.sum())
+    k7_bytes = 4.0 * (4 * b3.grid[0].numel() + 3 * res3 ** 3 * cap)
+    k7_plain_ms = time_ms(lambda: bucket_stencil3_plain(
+        *b3.grid, rr3, eps, res3), 2)
+    tree3_k = {
+        "K7": (stages3["K7 near field"], k7_plain_ms,
+               *pair_bound3(k7_pairs, k7_bytes)),
+        "K4": (stages3["K4 bulk <- outliers"], time_ms(
+            lambda: allpairs_accelerations_plain(
+                pos3, None, eps_sq=eps, g_const=gc, src_pos=opos3,
+                src_mass=k4_src3), 2),
+               *pair_bound3(float(n3) * opos3.shape[0],
+                            4.0 * (6 * n3 + 4 * opos3.shape[0]))),
+        "K1 outliers": (stages3["K1 outliers <- all"], time_ms(
+            lambda: allpairs_accelerations_plain(
+                opos3, None, eps_sq=eps, g_const=gc, src_pos=pos3,
+                src_mass=k1_src3), 2),
+            *pair_bound3(float(n3) * opos3.shape[0],
+                         4.0 * (4 * n3 + 6 * opos3.shape[0]))),
+    }
+    say("timings", f"K7 N=1M grid: {k7_pairs:.4e} occupied pairs (the "
+        f"bound's work), {k7_evaluated:.4e} evaluated (every target slot x "
+        f"occupied sources), "
+        f"{float(res3 ** 3 * cap * cap * (2 * rr3 + 1) ** 3):.4e} in the "
+        f"full K x K stencil")
+    for name, (ms, plain_ms_, bnd, by) in tree3_k.items():
+        say("timings", f"{name} at the octree's shape: kernel {ms:.4f} ms, "
+            f"plain {plain_ms_:.4f} ms, bound {bnd:.4f} ms ({by})")
+    del b3, nacc3, acc_s3, local3, terms3, grids3
+
+    # The octree's main path: Simulation under 'auto' at N = 1M in 3D.
+    sim3 = Simulation(cfg3, state=ParticleState.create(
+        pos3, torch.zeros_like(pos3), mass3), device="cuda")
+    resolved3 = (sim3.config.force_backend, sim3.config.bh_deep_levels,
+                 sim3.config.bh_nf_sparse)
+    say("tree3d", f"Simulation N={n3} dim=3 under auto resolved to "
+        f"(force_backend, bh_deep_levels, bh_nf_sparse) = {resolved3}")
+    require(resolved3 == ("bh", 0, 0), f"3D N=1M resolved to {resolved3}")
+    sim3.run(2)  # warm-up
+    torch.cuda.synchronize()
+    for c in counted + (bucket_stencil3,):
+        c.launches = 0
+    start.record()
+    sim3.run(20)
+    end.record()
+    torch.cuda.synchronize()
+    launches3 = {"K1": allpairs_accelerations.launches,
+                 "K4": allpairs_accelerations_wide.launches,
+                 "K7": bucket_stencil3.launches,
+                 "other": sum(c.launches for c in counted
+                              if c not in (allpairs_accelerations,
+                                           allpairs_accelerations_wide))}
+    tree3_steps_per_s = 20 / (start.elapsed_time(end) / 1e3)
+    st3 = sim3.state
+    over3_after = bh3.bh3_near_overflow(st3.pos, st3.mass, sim3.config)
+    say("tree3d", f"launches during run(20) at N={n3}: {launches3}; "
+        f"{tree3_steps_per_s:.4f} steps/s (CUDA events, after 2 warm-up "
+        f"steps); bucket overflow after the run {over3_after}, residual "
+        f"tier {tier(over3_after)}")
+    require(launches3 == {"K1": 20, "K4": 20, "K7": 20, "other": 0},
+            f"octree kernel launches {launches3}, expected K1, K4 and K7 "
+            f"20 each")
+    require(sim3.frame == 22, f"frame {sim3.frame}, expected 22")
+    for name in ("pos", "vel", "acc"):
+        require(bool(torch.isfinite(getattr(st3, name)).all()),
+                f"3D tree path: non-finite {name}")
+    ke3 = float(kinetic_energy(st3))
+    say("tree3d", f"frame {sim3.frame}: KE={ke3:.6e}")
+    require(math.isfinite(ke3) and ke3 > 0, "3D tree path: bad kinetic energy")
+    del sim3, st3, pos3, mass3
+
+    # What still raises: a Plummer sphere too clustered for the buckets.
+    pcfg = SimConfig(n=131_072, dim=3)
+    plum = init_scene("plummer", pcfg, device=dev, virialize=False)
+    over_pl = bh3.bh3_near_overflow(plum.pos, plum.mass, pcfg)
+    try:
+        resolve_config_for_state(plum.pos, plum.mass, pcfg)
+    except NotImplementedError as exc:
+        require("item 10" in str(exc), f"unexpected message: {exc}")
+        say("tree3d", f"plummer N=131072 dim=3 (overflow {over_pl}) under "
+            f"auto raises NotImplementedError: {exc}")
+    else:
+        fail("3D plummer N=131072 under auto did not raise; it needs the "
+             "deep-overflow chain")
+    say("tree3d", f"phase 9 took {time.perf_counter() - t_phase9:.1f} s")
+
     n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
     k2_bound, k2_by = bound(4.0 * n25 * (2 + 2 + 1 + 1 + 2 + 2),
@@ -1152,6 +1459,18 @@ def main() -> None:
               "nbodysim_tpu/kernels/collide_block.py:47",
               merger_launches["K6"], max(k6_errs), k6_ms, k6_plain_ms,
               k6_bnd),
+        entry(f"K7 bucket_stencil3 (octree N=1M, {res3}^3 x {cap}, rr={rr3})",
+              "nbodysim_tpu_torch/csrc/nearfield3.cu",
+              "nbodysim_tpu/kernels/nearfield.py:262", launches3["K7"],
+              max(k7_errs), *tree3_k["K7"][:2], tree3_k["K7"][2:]),
+        entry("K1 allpairs_accelerations (octree: 4096 outliers <- 1M, D=3)",
+              allpairs_cu, "nbodysim_tpu/kernels/allpairs.py:56",
+              launches3["K1"], k1_err3, *tree3_k["K1 outliers"][:2],
+              tree3_k["K1 outliers"][2:]),
+        entry("K4 allpairs_accelerations_wide (octree: 1M x 4096, D=3)",
+              allpairs_cu, "nbodysim_tpu/kernels/allpairs.py:105",
+              launches3["K4"], k4_err3, *tree3_k["K4"][:2],
+              tree3_k["K4"][2:]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

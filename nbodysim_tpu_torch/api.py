@@ -20,6 +20,7 @@ from nbodysim_tpu_torch.physics.collisions import (
 )
 from nbodysim_tpu_torch.physics.barneshut import (
     _OVERFLOW_CAP, bh_near_overflow)
+from nbodysim_tpu_torch.physics.barneshut3d import bh3_near_overflow
 from nbodysim_tpu_torch.physics.forces import resolve_config_for_state
 from nbodysim_tpu_torch.physics.integrators import (
     make_rollout,
@@ -92,7 +93,8 @@ class Simulation:
         exceeded = False
         cfg, state = self.config, self.state
         if cfg.force_backend == "bh" and not cfg.bh_deep_levels:
-            over = bh_near_overflow(state.pos, state.mass, cfg)
+            probe = bh3_near_overflow if state.dim == 3 else bh_near_overflow
+            over = probe(state.pos, state.mass, cfg)
             if over > _OVERFLOW_CAP:
                 exceeded = True
                 warnings.warn(

@@ -75,7 +75,10 @@ class SimConfig:
     force_block_targets: int = 256
     force_block_sources: int = 2048
 
-    # Tree code (not ported yet; kept so configurations carry across)
+    # Tree code (force_backend="bh"): 2D quadtree and 3D octree. The
+    # deep-overflow chain (bh_deep_levels != 0) and its tiles and sparse
+    # near field are not ported yet (ROADMAP item 10); their fields are
+    # kept so configurations carry across.
     bh_levels: int = 0
     bh_accept_radius: int = 0
     bh_deep_levels: int = 0

@@ -55,6 +55,9 @@ SIGNATURES = {
                          _f, _vp),
     # bx, by, bm, ax, ay, center_rows, res, cap, rr, eps_sq, stream
     "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp),
+    # bx, by, bz, bm, ax, ay, az, center_rows, res, cap, rr, eps_sq, stream
+    "nb_bucket_stencil3": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                           _f, _vp),
 }
 
 

@@ -34,6 +34,9 @@ Differences from the JAX package, each deliberate:
     for them raises NotImplementedError, and `forces.resolve_config_for_state`
     raises where the JAX package would switch them on.
 
+The bucket grid, its gather and the overflow residual take 2D and 3D
+alike; `physics/barneshut3d.py` (the octree) shares them.
+
 Scatter order: `index_add_` on CUDA uses atomics, so the pyramid's sums
 differ in the last bits from run to run; tolerances state that as their
 reason.
@@ -56,7 +59,8 @@ from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
 from nbodysim_tpu_torch.kernels.nearfield import (
-    bucket_stencil, bucket_stencil_plain)
+    bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
+    bucket_stencil_plain)
 
 NEAR_CAP = 16           # bucket slots per finest cell
 _OVERFLOW_CAP = 16384   # compact-residual set size for overflowing cells
@@ -72,13 +76,25 @@ def _iota(shape, dim: int, device) -> torch.Tensor:
     return torch.arange(shape[dim], device=device).view(view).expand(shape)
 
 
-def _bounding_square(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(corner, size) of a square containing all particles, slightly padded."""
+def _bounding_box(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(corner, size) of a square (a cube in 3D) containing all particles,
+    slightly padded."""
     mn = pos.min(0).values
     mx = pos.max(0).values
     center = 0.5 * (mn + mx)
     size = (mx - mn).max() * 1.0001 + 1e-6
     return center - 0.5 * size, size
+
+
+def _cell_ids(pos, corner, size, res: int):
+    """Cell indices [N, D] (int64) on the res^D grid over the bounding box,
+    and their row-major flat ids [N]."""
+    u = (pos - corner) / size
+    ci = torch.clamp((u * res).to(torch.int64), 0, res - 1)
+    flat = ci[:, 0]
+    for a in range(1, pos.shape[1]):
+        flat = flat * res + ci[:, a]
+    return ci, flat
 
 
 def _moment_payload(pos, mass):
@@ -105,11 +121,9 @@ def _build_pyramid(pos, mass, levels: int, synth_quad: bool = False):
     synth_quad=True scatters only (m, sx, sy) and synthesizes the
     quadrupole channels as point-at-COM raw moments (the JAX package's deep
     mode). Returns (grids, corner, size, ci [N, 2] int64, flat [N])."""
-    corner, size = _bounding_square(pos)
+    corner, size = _bounding_box(pos)
     res = 1 << levels
-    u = (pos - corner) / size
-    ci = torch.clamp((u * res).to(torch.int64), 0, res - 1)
-    flat = ci[:, 0] * res + ci[:, 1]
+    ci, flat = _cell_ids(pos, corner, size, res)
     payload = _moment_payload(pos, mass)
     if synth_quad:
         g3 = torch.zeros((res * res, 3), dtype=pos.dtype, device=pos.device)
@@ -496,14 +510,21 @@ def _near_masked_blocked(tgt_pos, tgt_cell, src_pos, src_mass, src_cell,
     return acc
 
 
-def _bucket_stencil_dispatch(bx, by, bm, rr, eps_sq, center_rows,
+def _bucket_stencil_dispatch(grid, rr, eps_sq, center_rows,
                              use_kernels: bool):
-    """K3 (`bucket_stencil`: the kernel on a CUDA tensor, the plain version
-    on a CPU one) or, with use_kernels=False, the plain version anywhere."""
+    """K3 on a 2D grid (bx, by, bm), K7 on a 3D one (bx, by, bz, bm) -- the
+    wrappers launch the kernel on a CUDA tensor and run the plain version
+    on a CPU one -- or, with use_kernels=False, the plain version
+    anywhere."""
+    if len(grid) == 3:
+        if use_kernels:
+            return bucket_stencil(*grid, rr=rr, eps_sq=eps_sq,
+                                  center_rows=center_rows)
+        return bucket_stencil_plain(*grid, rr, eps_sq, center_rows)
     if use_kernels:
-        return bucket_stencil(bx, by, bm, rr=rr, eps_sq=eps_sq,
-                              center_rows=center_rows)
-    return bucket_stencil_plain(bx, by, bm, rr, eps_sq, center_rows)
+        return bucket_stencil3(*grid, rr=rr, eps_sq=eps_sq,
+                               center_rows=center_rows)
+    return bucket_stencil3_plain(*grid, rr, eps_sq, center_rows)
 
 
 class _Buckets(NamedTuple):
@@ -512,21 +533,23 @@ class _Buckets(NamedTuple):
     flat_s: torch.Tensor    # [N] sorted flat cell ids
     slot: torch.Tensor      # [N] rank inside the cell
     in_cap: torch.Tensor    # [N] slot < cap
-    pos_s: torch.Tensor     # [N, 2]
+    pos_s: torch.Tensor     # [N, D]
     mass_s: torch.Tensor    # [N]
-    ci_s: torch.Tensor      # [N, 2] cell indices
+    ci_s: torch.Tensor      # [N, D] cell indices
     overflow: torch.Tensor  # [] particles past the cap
-    grid: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-    # (bx, by, bm), [res + 2rr, res, cap] each: rr zero halo rows per side
+    grid: Tuple[torch.Tensor, ...]
+    # (b_x, b_y[, b_z], b_m), [res + 2rr, res(, res), cap] each: rr zero
+    # halo rows (x-slabs) per side
 
 
 def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
                  rr: int) -> _Buckets:
     """Sort particles by cell, rank them inside it, and scatter the first
-    `cap` of each cell into the bucket grid. Particles with a flat id >=
-    res^2 (the extracted outliers) and overflow go to one extra dump entry
-    that is cut off (JAX: mode="drop")."""
-    n = pos.shape[0]
+    `cap` of each cell into the bucket grid, in 2D or 3D (D = pos.shape[1]
+    grid axes). Particles with a flat id >= res^D (the extracted outliers)
+    and overflow go to one extra dump entry that is cut off (JAX:
+    mode="drop")."""
+    n, dim = pos.shape
     device = pos.device
     # Stable, as jnp.argsort is: which particles land in the in-cap slots
     # must match the JAX package when a cell overflows.
@@ -538,33 +561,37 @@ def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
     pos_s = pos[order]
     mass_s = mass[order]
 
-    size = res * res * cap
-    dest = torch.where(in_cap & (flat_s < res * res), flat_s * cap + slot,
+    n_cells = res ** dim
+    size = n_cells * cap
+    dest = torch.where(in_cap & (flat_s < n_cells), flat_s * cap + slot,
                        size)
+    halo = (0, 0) * dim + (rr, rr)     # zero x-slabs on both sides
 
     def scat(v):
         g = torch.zeros(size + 1, dtype=pos.dtype, device=device)
         g[dest] = v
-        return F.pad(g[:size].reshape(res, res, cap), (0, 0, 0, 0, rr, rr))
+        return F.pad(g[:size].reshape((res,) * dim + (cap,)), halo)
 
-    grid = (scat(pos_s[:, 0]), scat(pos_s[:, 1]),
-            scat(torch.where(in_cap, mass_s, 0.0)))
+    grid = tuple(scat(pos_s[:, a]) for a in range(dim)) + (
+        scat(torch.where(in_cap, mass_s, 0.0)),)
     return _Buckets(order, flat_s, slot, in_cap, pos_s, mass_s, ci[order],
                     (slot >= cap).sum(), grid)
 
 
-def _bucket_gather(b: _Buckets, accx, accy, res: int, cap: int):
-    """Per-slot stencil output -> [N, 2] in sorted order (0 past the cap).
-    Gathers clamp out-of-grid ids, as JAX's do; those rows are garbage."""
-    gidx = (torch.clamp(b.flat_s, max=res * res - 1) * cap
+def _bucket_gather(b: _Buckets, acc, res: int, cap: int):
+    """Per-slot stencil outputs (one grid per axis) -> [N, D] in sorted
+    order (0 past the cap). Gathers clamp out-of-grid ids, as JAX's do;
+    those rows are garbage."""
+    n_cells = res ** len(acc)
+    gidx = (torch.clamp(b.flat_s, max=n_cells - 1) * cap
             + torch.clamp(b.slot, max=cap - 1))
-    return torch.stack(
-        [torch.where(b.in_cap, accx.reshape(-1)[gidx], 0.0),
-         torch.where(b.in_cap, accy.reshape(-1)[gidx], 0.0)], -1)
+    return torch.stack([torch.where(b.in_cap, a.reshape(-1)[gidx], 0.0)
+                        for a in acc], -1)
 
 
 def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
-    """Exact residual for bucket overflow (clustered cells), in sorted order.
+    """Exact residual for bucket overflow (clustered cells), in sorted order,
+    in 2D or 3D.
 
     The bucket pass used only in-cap particles as sources and targets.
     Gather the overflow set O compactly (a fixed cap) and add
@@ -597,18 +624,18 @@ def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
 
 def _near_field_buckets(pos, mass, ci, flat, levels: int, eps_sq, g_const,
                         cap: int, radius: int, use_kernels: bool = False):
-    """Particle-particle near field on a dense [r, r, cap] bucket grid,
-    with the exact residual for overflowing cells. Particles with a flat
-    id >= r^2 (the extracted outliers) stay out of the grid; their rows are
-    garbage and the caller discards them. Returns (acc [N, 2],
-    overflow_count tensor)."""
+    """Particle-particle near field on a dense [r, r, cap] bucket grid
+    ([r, r, r, cap] in 3D: the JAX package's `_near_field_buckets` and
+    `barneshut3d._near_field_buckets3`), with the exact residual for
+    overflowing cells. Particles with a flat id >= r^D (the extracted
+    outliers) stay out of the grid; their rows are garbage and the caller
+    discards them. Returns (acc [N, D], overflow_count tensor)."""
     res = 1 << levels
     rr = radius - 1
     b = _bucket_grid(pos, mass, ci, flat, res, cap, rr)
-    accx, accy = _bucket_stencil_dispatch(*b.grid, rr, eps_sq, res,
-                                          use_kernels)
-    acc_s = _overflow_residual(b, _bucket_gather(b, accx, accy, res, cap),
-                               eps_sq, rr)
+    acc = _bucket_stencil_dispatch(b.grid, rr, eps_sq, res, use_kernels)
+    acc_s = _overflow_residual(b, _bucket_gather(b, acc, res, cap), eps_sq,
+                               rr)
     acc = torch.empty_like(acc_s)
     acc[b.order] = g_const * acc_s
     return acc, b.overflow
@@ -665,19 +692,16 @@ def heavy_coupling(tgt_pos, h_pos, h_mass, eps_sq, g_const):
     return g_const * (w_h[:, :, None] * d_h).sum(1)
 
 
-def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
-                      near_cap: int, radius: int, use_kernels: bool):
-    """The tree-code force evaluation (the JAX package's `_bh_accelerations`
-    without its deep branch). With use_kernels, the near field is K3 and
-    the outlier couplings are K1 (outliers <- all) and K4 (bulk <-
-    outliers); on a CPU tensor those wrappers run their plain versions.
-    use_kernels=False runs the plain versions on any device."""
-    n = pos.shape[0]
+def _exact_couplings(pos, mass, eps_sq: float, g_const: float,
+                     use_kernels: bool):
+    """Heavy/outlier extraction and the exact couplings around the tree, in
+    2D and 3D: targets <- heavy bodies (plain), outliers <- all (K1) and
+    bulk <- outliers (K4); with use_kernels=False both through K1's plain
+    version. Returns (ext, acc_heavy, acc_out, acc_from_out)."""
     ext = _extract_heavy_outliers(pos, mass)
-    is_heavy, h_pos, h_mass = ext["is_heavy"], ext["h_pos"], ext["h_mass"]
-    is_out, out_i, out_sel = ext["is_out"], ext["out_i"], ext["out_sel"]
-
-    acc_heavy = heavy_coupling(pos, h_pos, h_mass, eps_sq, g_const)
+    is_heavy, out_i, out_sel = ext["is_heavy"], ext["out_i"], ext["out_sel"]
+    acc_heavy = heavy_coupling(pos, ext["h_pos"], ext["h_mass"], eps_sq,
+                               g_const)
 
     if use_kernels:
         def _direct(tp, sp, sm):
@@ -701,9 +725,38 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
     acc_out = _direct(pos[out_i], pos, torch.where(is_heavy, 0.0, mass))
     # As sources toward the bulk, outliers must not re-contribute heavy mass;
     # bulk targets feel the outliers by exact [N, k_out] pairs (outlier rows
-    # of this term are discarded below).
+    # of this term are discarded by `_assemble`).
     out_src_mass = torch.where(out_sel & ~is_heavy[out_i], mass[out_i], 0.0)
     acc_from_out = _direct_wide(pos, pos[out_i], out_src_mass)
+    return ext, acc_heavy, acc_out, acc_from_out
+
+
+def _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out):
+    """Bulk rows: tree far + near field + outlier pairs; outlier rows: their
+    exact forces; every row: the heavy coupling."""
+    acc = torch.where(ext["is_out"][:, None], 0.0,
+                      far + near + acc_from_out) + acc_heavy
+    return acc.index_add(0, ext["out_i"],
+                         torch.where(ext["out_sel"][:, None], acc_out, 0.0))
+
+
+def _outlier_flat_ids(flat, is_out, n_cells: int):
+    """Outliers must not enter the buckets: each gets a unique out-of-range
+    flat id, so the scatter drops them and no probe matches them."""
+    return torch.where(
+        is_out, n_cells + torch.arange(flat.shape[0], device=flat.device),
+        flat)
+
+
+def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
+                      near_cap: int, radius: int, use_kernels: bool):
+    """The tree-code force evaluation (the JAX package's `_bh_accelerations`
+    without its deep branch). With use_kernels, the near field is K3 and
+    the outlier couplings are K1 (outliers <- all) and K4 (bulk <-
+    outliers); on a CPU tensor those wrappers run their plain versions.
+    use_kernels=False runs the plain versions on any device."""
+    ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
+        pos, mass, eps_sq, g_const, use_kernels)
 
     tree_mass = ext["tree_mass"]          # the tree sees only the bulk
     grids, corner, size, ci, flat = _build_pyramid(
@@ -721,40 +774,34 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
             local = tuple(u + t for u, t in zip(up, terms))
 
     far = g_const * _l2p_eval(local, ci, pos, corner, size, levels)
-
-    # Outliers must not enter the buckets: each gets a unique out-of-range
-    # flat id, so the scatter drops them and no probe matches them.
-    flat_nf = torch.where(
-        is_out, res * res + torch.arange(n, device=pos.device), flat)
     near, _ = _near_field_buckets(
-        pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
-        radius, use_kernels=use_kernels)
+        pos, tree_mass, ci, _outlier_flat_ids(flat, ext["is_out"], res * res),
+        levels, eps_sq, g_const, near_cap, radius, use_kernels=use_kernels)
+    return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
 
-    acc = torch.where(is_out[:, None], 0.0,
-                      far + near + acc_from_out) + acc_heavy
-    return acc.index_add(0, out_i,
-                         torch.where(out_sel[:, None], acc_out, 0.0))
+
+def _near_overflow(pos: torch.Tensor, mass: torch.Tensor,
+                   levels: int) -> int:
+    """Bulk particles beyond the bucket cap on the res^D finest grid, after
+    the same heavy/outlier extraction the force path applies (no forces;
+    2D and 3D)."""
+    n, dim = pos.shape
+    res = 1 << levels
+    ext = _extract_heavy_outliers(pos, mass)
+    corner, size = _bounding_box(ext["bulk_pos"])
+    _, flat = _cell_ids(ext["bulk_pos"], corner, size, res)
+    flat_s = torch.sort(
+        _outlier_flat_ids(flat, ext["is_out"], res ** dim)).values
+    slot = torch.arange(n, device=pos.device) - sorted_first_occurrence(flat_s)
+    in_bulk = flat_s < res ** dim
+    return int(((slot >= NEAR_CAP) & in_bulk).sum())
 
 
 def bh_near_overflow(pos: torch.Tensor, mass: torch.Tensor,
                      config: SimConfig) -> int:
-    """Bulk particles beyond the near-field bucket cap, after the same
-    heavy/outlier extraction the force path applies (no forces)."""
-    n = pos.shape[0]
-    levels = _resolve_levels(config, n)
-    res = 1 << levels
-
-    ext = _extract_heavy_outliers(pos, mass)
-    corner, size = _bounding_square(ext["bulk_pos"])
-    u = (ext["bulk_pos"] - corner) / size
-    ci = torch.clamp((u * res).to(torch.int64), 0, res - 1)
-    flat = ci[:, 0] * res + ci[:, 1]
-    flat_nf = torch.where(ext["is_out"],
-                          res * res + torch.arange(n, device=pos.device), flat)
-    flat_s = torch.sort(flat_nf).values
-    slot = torch.arange(n, device=pos.device) - sorted_first_occurrence(flat_s)
-    in_bulk = flat_s < res * res
-    return int(((slot >= NEAR_CAP) & in_bulk).sum())
+    """Bulk particles beyond the 2D near-field bucket cap (see
+    `_near_overflow`)."""
+    return _near_overflow(pos, mass, _resolve_levels(config, pos.shape[0]))
 
 
 def _resolve_levels(config: SimConfig, n: int) -> int:
@@ -813,14 +860,17 @@ def bh_accelerations(pos: torch.Tensor, mass: torch.Tensor,
                      use_kernels: Optional[bool] = None) -> torch.Tensor:
     """Approximate softened accelerations via the stencil FMM tree code.
 
+    dim=2 runs this quadtree pyramid; dim=3 dispatches to the octree FMM
+    (`physics/barneshut3d.py`), as the JAX package does.
     use_kernels (default: the tensors lie on a CUDA device) routes the
-    near field and the outlier couplings to K3, K1 and K4; False runs the
-    same tree code through their plain versions (the reference on the
-    card). It is an internal switch, not a configuration field."""
+    near field and the outlier couplings to K3 (K7 in 3D), K1 and K4;
+    False runs the same tree code through their plain versions (the
+    reference on the card). It is an internal switch, not a configuration
+    field."""
     if pos.shape[1] == 3:
-        raise NotImplementedError(
-            "the 3D tree code (octree FMM) is ROADMAP slice 4 and not "
-            "ported yet; use force_backend='cuda' or 'torch' in 3D")
+        from nbodysim_tpu_torch.physics.barneshut3d import bh3_accelerations
+
+        return bh3_accelerations(pos, mass, config, use_kernels=use_kernels)
     n = pos.shape[0]
     levels = _resolve_levels(config, n)
     deep = _resolve_deep_levels(config, levels)

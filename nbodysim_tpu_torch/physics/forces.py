@@ -9,14 +9,14 @@ with the self/coincident term skipped (reference Quadtree.hpp:124).
   * `direct_accelerations`  — exact O(N^2) plain torch, blocked; the CPU
     path and the reference on the card.
   * `compute_accelerations` — dispatch: the CUDA kernel K1
-    (kernels/allpairs.py) or the plain version, or the 2D tree code
-    (physics/barneshut.py, `"bh"`, automatic from N = 100k), per
-    `force_backend`.
+    (kernels/allpairs.py) or the plain version, or the tree code (`"bh"`,
+    automatic from N = 100k: the quadtree of physics/barneshut.py in 2D,
+    the octree of physics/barneshut3d.py in 3D), per `force_backend`.
 
 What is not ported raises NotImplementedError and never falls back to
-another force law silently: the 3D tree code (ROADMAP slice 4), and the
-tree code's deep-overflow chain (ROADMAP item 10), which the JAX package
-switches on for scenes too clustered for the near-field buckets.
+another force law silently: the tree code's deep-overflow chain (ROADMAP
+item 10), which the JAX package switches on for scenes too clustered for
+the near-field buckets.
 """
 
 from __future__ import annotations
@@ -33,9 +33,10 @@ from nbodysim_tpu_torch.kernels.allpairs import (
 )
 from nbodysim_tpu_torch.physics.barneshut import (
     _OVERFLOW_CAP, bh_accelerations, bh_near_overflow)
+from nbodysim_tpu_torch.physics.barneshut3d import (
+    _resolve_deep_levels3, _resolve_levels3, bh3_near_overflow)
 
-# Exact/tree crossovers of the JAX package (forces.py:205,210). In 3D the
-# tree side is not ported, so 'auto' at or above it raises.
+# Exact/tree crossovers of the JAX package (forces.py:205,210).
 BH_AUTO_THRESHOLD = 100_000
 BH3_AUTO_THRESHOLD = 100_000
 
@@ -95,22 +96,15 @@ def resolve_backend(config: SimConfig, n: int, dim: int,
     """Resolve `config.force_backend` to "cuda", "torch" or "bh" for `n`
     bodies on `device`.
 
-    'auto' picks the 2D tree code from N = 100k, and below it the CUDA
-    kernel on a CUDA device and the plain version on the CPU. An explicit
-    "cuda" runs K1 at any N, but raises on a CPU device. The 3D tree code
-    (explicit "bh", or 'auto' at N >= 100k in 3D) raises
-    NotImplementedError."""
+    'auto' picks the tree code from N = 100k (quadtree in 2D, octree in
+    3D), and below it the CUDA kernel on a CUDA device and the plain
+    version on the CPU. An explicit "cuda" runs K1 at any N, but raises on
+    a CPU device."""
     device = torch.device(device)
     backend = config.force_backend
     threshold = BH_AUTO_THRESHOLD if dim == 2 else BH3_AUTO_THRESHOLD
     if backend == "auto" and n >= threshold:
         backend = "bh"
-    if backend == "bh" and dim == 3:
-        raise NotImplementedError(
-            f"the 3D tree code (force_backend='bh', automatic from N="
-            f"{threshold}) is ROADMAP slice 4 and not ported yet; for "
-            f"N={n} set force_backend='cuda' or 'torch' to run the exact "
-            f"O(N^2) forces")
     if backend == "auto":
         return "cuda" if device.type == "cuda" else "torch"
     if backend == "cuda" and device.type != "cuda":
@@ -122,9 +116,10 @@ def resolve_backend(config: SimConfig, n: int, dim: int,
 def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     """State-aware 'auto' resolution: pin the backend, and when 'auto'
     picks the tree code, probe the near-field bucket occupancy of the
-    actual particles once (`bh_near_overflow`). Where the overflow exceeds
-    the exact residual's capacity, the JAX package turns on the deep-
-    overflow chain; that is ROADMAP item 10, so the port raises
+    actual particles once (`bh_near_overflow`, `bh3_near_overflow` in 3D)
+    and pin `bh_nf_sparse` (`_resolve_nf_sparse`). Where the overflow
+    exceeds the exact residual's capacity, the JAX package turns on the
+    deep-overflow chain; that is ROADMAP item 10, so the port raises
     NotImplementedError rather than run the tree without it. An explicit
     force_backend='bh' keeps the user's choice (with the capacity warning
     of `api.Simulation.check_capacity`)."""
@@ -132,14 +127,32 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     backend = resolve_backend(config, n, dim, pos.device)
     if backend != "bh" or config.force_backend != "auto":
         return config.replace(force_backend=backend)
-    over = bh_near_overflow(pos, mass, config)
+    probe = bh3_near_overflow if dim == 3 else bh_near_overflow
+    over = probe(pos, mass, config)
     if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
         raise NotImplementedError(
             f"auto force backend: near-field overflow {over} exceeds the "
             f"exact-residual capacity {_OVERFLOW_CAP}; this scene needs the "
             f"tree code's deep-overflow chain, which is ROADMAP item 10 and "
             f"not ported yet. Set force_backend='cuda' for exact forces.")
-    return config.replace(force_backend="bh")
+    return _resolve_nf_sparse(pos, config.replace(force_backend="bh"))
+
+
+def _resolve_nf_sparse(pos, config: SimConfig) -> SimConfig:
+    """Pin bh_nf_sparse = -1 (auto) to 0 or 1, as the JAX package's
+    `_resolve_nf_sparse` does: 0 in 2D, and 0 in 3D whenever the deep chain
+    is off. With the 3D deep chain on, the JAX package counts the
+    bucket-tier targets (`bh3_bucket_tier_count`); that branch is ROADMAP
+    item 10 and raises here."""
+    if config.bh_nf_sparse != -1:
+        return config
+    if pos.shape[1] == 3 and _resolve_deep_levels3(
+            config, _resolve_levels3(config, pos.shape[0])):
+        raise NotImplementedError(
+            "bh_nf_sparse=-1 with the 3D deep-overflow chain on needs the "
+            "sparse near field's bucket-tier probe, which is ROADMAP item 10 "
+            "and not ported yet")
+    return config.replace(bh_nf_sparse=0)
 
 
 def compute_accelerations(

@@ -1,8 +1,9 @@
 """Procedural initial-condition scenes (port of `nbodysim_tpu.scenes`).
 
 Ported: `uniform_disc` (the reference's flagship scene), `kepler`,
-`kepler_system` and `galaxy_merger` (BASELINE config 5). The other scenes of the JAX package keep their names here
-and raise NotImplementedError until they are ported (ROADMAP Queue A).
+`kepler_system`, `plummer` (BASELINE config 2) and `galaxy_merger` (BASELINE
+config 5). The other scenes of the JAX package keep their names here and
+raise NotImplementedError until they are ported (ROADMAP Queue A).
 Every constructor takes the target `device` explicitly.
 """
 
@@ -16,21 +17,24 @@ from nbodysim_tpu_torch.core.state import ParticleState
 from nbodysim_tpu_torch.scenes.disc import uniform_disc
 from nbodysim_tpu_torch.scenes.galaxy import galaxy_merger
 from nbodysim_tpu_torch.scenes.kepler import kepler_orbit, kepler_system
+from nbodysim_tpu_torch.scenes.plummer import plummer_sphere
 
 
 def _not_ported(name: str, config: SimConfig, **kwargs) -> ParticleState:
     raise NotImplementedError(
         f"scene {name!r} is not ported to nbodysim_tpu_torch yet "
-        f"(ported: uniform_disc, kepler, kepler_system, galaxy_merger)")
+        f"(ported: uniform_disc, kepler, kepler_system, plummer, "
+        f"galaxy_merger)")
 
 
 SCENES: Dict[str, Callable[..., ParticleState]] = {
     "uniform_disc": uniform_disc,
     "kepler": kepler_orbit,
     "kepler_system": kepler_system,
+    "plummer": plummer_sphere,
     "galaxy_merger": galaxy_merger,
     **{name: functools.partial(_not_ported, name)
-       for name in ("plummer", "spiral", "kuzmin")},
+       for name in ("spiral", "kuzmin")},
 }
 
 
@@ -49,4 +53,5 @@ __all__ = [
     "galaxy_merger",
     "kepler_orbit",
     "kepler_system",
+    "plummer_sphere",
 ]

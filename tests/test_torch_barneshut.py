@@ -280,8 +280,13 @@ def test_explicit_bh_overflow_warns_and_deep_chain_raises():
     with pytest.raises(NotImplementedError, match="item 10"):
         tb.bh_accelerations(as_t(pos[:64]), as_t(mass[:64]),
                             cfg.replace(bh_deep_levels=-1))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tb.bh_accelerations(torch.zeros(8, 3), torch.ones(8), cfg)
+    # 3D: the octree runs; its deep chain is item 10 too.
+    pos3, mass3 = rand_system(64, dim=3)
+    acc3 = tb.bh_accelerations(as_t(pos3), as_t(mass3), cfg.replace(dim=3))
+    assert acc3.shape == (64, 3) and bool(torch.isfinite(acc3).all())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tb.bh_accelerations(as_t(pos3), as_t(mass3),
+                            cfg.replace(dim=3, bh_deep_levels=-1))
 
 
 @pytest.mark.parametrize("cfg", [

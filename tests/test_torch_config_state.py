@@ -134,18 +134,13 @@ def test_cuda_backend_on_cpu_tensor_raises():
     ({}, 100_000, 3),
 ])
 def test_tree_code_raises_not_implemented(cfg, n_bodies, dim):
-    """The 2D tree code is ported and resolves to "bh"; what it still lacks,
-    the deep-overflow chain (ROADMAP item 10), raises, and so does the 3D
-    tree code (slice 4)."""
-    config = nt.SimConfig(**cfg)
-    if dim == 3:
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            resolve_backend(config, n_bodies, dim, CPU)
-        return
+    """The tree code is ported in 2D and 3D and resolves to "bh"; what it
+    still lacks, the deep-overflow chain (ROADMAP item 10), raises."""
+    config = nt.SimConfig(dim=dim, **cfg)
     assert resolve_backend(config, n_bodies, dim, CPU) == "bh"
     with pytest.raises(NotImplementedError, match="item 10"):
         nt.compute_accelerations(
-            torch.zeros(16, 2), torch.ones(16),
+            torch.rand(16, dim), torch.ones(16),
             config.replace(force_backend="bh", bh_deep_levels=-1))
 
 
@@ -205,12 +200,12 @@ def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
 def test_scene_errors():
     with pytest.raises(KeyError, match="uniform_disc"):
         nt.init_scene("nope", nt.SimConfig(), device=CPU)
-    for name in ("plummer", "spiral", "kuzmin"):
+    for name in ("spiral", "kuzmin"):
         assert name in nt.scenes.SCENES
         with pytest.raises(NotImplementedError):
             nt.init_scene(name, nt.SimConfig(n=64), device=CPU)
-    assert nt.init_scene("galaxy_merger", nt.SimConfig(n=64),
-                         device=CPU).n == 64
+    for name in ("galaxy_merger", "plummer"):
+        assert nt.init_scene(name, nt.SimConfig(n=64), device=CPU).n == 64
 
 
 def test_package_imports_no_jax():

@@ -1,7 +1,7 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K6 against their
+"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7 against their
 plain torch versions on the card, their launch counts, the N=25k main path,
-the tree code and the large-N collision passes through the kernels against
-the same code through the plain versions.
+the 2D and 3D tree code and the large-N collision passes through the kernels
+against the same code through the plain versions.
 
 Marked `cuda`; every test skips without a CUDA device. On a machine with a
 card and without JAX (tests/conftest.py imports JAX), run:
@@ -22,7 +22,8 @@ from nbodysim_tpu_torch.kernels.collide import (
 from nbodysim_tpu_torch.kernels.collide_block import (
     block_collision_deltas, block_collision_deltas_plain)
 from nbodysim_tpu_torch.kernels.nearfield import (
-    bucket_stencil, bucket_stencil_plain)
+    bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
+    bucket_stencil_plain)
 from nbodysim_tpu_torch.physics import collisions as coll
 from nbodysim_tpu_torch.physics.barneshut import bh_accelerations
 
@@ -133,6 +134,12 @@ def test_launch_counters_count_kernel_launches_only(dev):
     rect_pair_deltas(tuple(f.cpu() for f in fields),
                      tuple(f.cpu() for f in fields), dim=2, impulse=1.5)
     assert rect_pair_deltas.launches == k5 + 1
+    k7 = bucket_stencil3.launches
+    grid3 = torch.rand(8, 4, 4, 4, device=dev)
+    bucket_stencil3(grid3, grid3, grid3, grid3, rr=2, eps_sq=1.0,
+                    center_rows=4)
+    bucket_stencil3(*(grid3.cpu(),) * 4, rr=2, eps_sq=1.0, center_rows=4)
+    assert bucket_stencil3.launches == k7 + 1
 
 
 def test_wrappers_reject_malformed_input(dev):
@@ -153,6 +160,11 @@ def test_wrappers_reject_malformed_input(dev):
     with pytest.raises(ValueError):   # more than 16 slots
         big = torch.rand(8, 8, 17, device=dev)
         bucket_stencil(big, big, big, rr=2, eps_sq=1.0, center_rows=4)
+    grid3 = torch.rand(8, 4, 4, 4, device=dev)
+    with pytest.raises(ValueError):   # x-slabs != center_rows + 2rr
+        bucket_stencil3(*(grid3,) * 4, rr=2, eps_sq=1.0, center_rows=5)
+    with pytest.raises(ValueError):   # halo past the largest radius
+        bucket_stencil3(*(grid3,) * 4, rr=5, eps_sq=1.0, center_rows=-2)
 
 
 def test_main_path_runs_through_the_kernels(dev):
@@ -237,6 +249,53 @@ def test_tree_code_runs_through_the_kernels(dev):
     sim.run(2)
     assert sim.frame == 2 and bool(torch.isfinite(sim.state.pos).all())
 
+
+@pytest.mark.parametrize("rows,res,cap,rr,eps_sq", [
+    (64, 64, 16, 1, 1.0), (13, 18, 16, 1, 0.0), (8, 12, 16, 2, 1.0),
+    (6, 9, 8, 3, 1.0), (6, 9, 16, 4, 1.0), (5, 7, 5, 4, 0.0)])
+def test_k7_matches_plain(dev, rows, res, cap, rr, eps_sq):
+    """Every halo the config allows (rr = 1..4: the source cube is staged
+    in x-plane chunks where it outgrows shared memory), ragged edges,
+    eps = 0."""
+    g = _gen(dev, 11)
+    shape = (rows + 2 * rr, res, res, cap)
+    grid = [_uniform(g, shape, -5.0, 5.0) for _ in range(3)]
+    bm = _uniform(g, shape, 0.0, 2.0)
+    grid.append(torch.where(torch.rand(shape, generator=g, device=dev) < 0.3,
+                            bm, 0.0))
+    got = bucket_stencil3(*grid, rr=rr, eps_sq=eps_sq, center_rows=rows)
+    ref = bucket_stencil3_plain(*grid, rr, eps_sq, rows)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    for a, r in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - r).abs().max()) <= 1e-5 * scale
+
+
+def test_tree3d_runs_through_the_kernels(dev):
+    """N = 131,072 uniform 3D: 'auto' is the octree; one evaluation launches
+    K1, K4 and K7 once each and matches the plain route within 1e-5 max|a|
+    (index_add_'s atomics make the pyramid's last bits vary)."""
+    g = _gen(dev, 12)
+    n = 1 << 17
+    pos = _uniform(g, (n, 3), -3e4, 3e4)
+    mass = _uniform(g, (n,), 0.1, 10.0)
+    cfg = nt.SimConfig(n=n, dim=3, enable_collisions=False)
+    state = nt.ParticleState.create(pos, torch.zeros_like(pos), mass)
+    sim = nt.Simulation(cfg, state=state, device=dev)
+    assert (sim.config.force_backend, sim.config.bh_deep_levels,
+            sim.config.bh_nf_sparse) == ("bh", 0, 0)
+    counted = (allpairs_accelerations, allpairs_accelerations_wide,
+               bucket_stencil3)
+    counts = [c.launches for c in counted]
+    got = nt.compute_accelerations(pos, mass, sim.config)
+    assert [c.launches for c in counted] == [c + 1 for c in counts]
+    ref = bh_accelerations(pos, mass, sim.config, use_kernels=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    sim.run(2)
+    assert sim.frame == 2 and bool(torch.isfinite(sim.state.pos).all())
 
 
 def _cloud(g, n, dim, half):
