@@ -6,19 +6,26 @@
 Phases, each printing its own lines:
   1. device   — the card's name and power limit (nvidia-smi), torch, CUDA
                 and nvcc versions; exits non-zero without a CUDA device;
-  2. build    — compiles the CUDA kernels from nbodysim_tpu_torch/csrc/;
+  2. build    — compiles the CUDA kernels from nbodysim_tpu_torch/csrc/,
+                and reads K1's inner loop and K2's batch test from the
+                library's SASS (cuobjdump): instructions per pair;
   3. K1       — the all-pairs gravity kernel against its plain torch
-                version on the card, on six cases, each within
-                1e-5 * max|a|;
+                version on the card, on seven cases (both targets-per-thread
+                variants, the source split, one target and one source),
+                each within 1e-5 * max|a|;
   4. K2       — the collision kernel against its plain version on dense
-                colliding clouds (2D, 3D) and the N=25k disc, within
-                1e-5 * max(max|v|, 10), with momentum conservation;
-  5. main     — Simulation(SimConfig(n=25_000), scene="uniform_disc",
-                device="cuda").run(200): finite state and energies, both
-                kernels launched exactly 200 times, K1 and K2 again on the
-                evolved state, one step through the kernels against one
-                step through the plain versions (1e-5 * max|x|, max|v|);
-  6. timings  — kernel and plain times at the main path's shapes, K1
+                colliding clouds (2D, 3D, a ragged 3D one) and the N=25k
+                disc, within 1e-5 * max(max|v|, 10), with momentum
+                conservation and the same particles hit;
+  5. main     — Simulation(SimConfig(n=25_000), scene="uniform_disc")
+                (no device: the card is the default).run(200): finite state
+                and energies, both kernels launched exactly 200 times, the
+                step's device operations and idle share (torch.profiler), K1
+                and K2 again on the evolved state, one step through the
+                kernels against one step through the plain versions
+                (1e-5 * max|x|, max|v|);
+  6. timings  — kernel and plain times at the main path's shapes (K2 on the
+                initial and the evolved disc), K1
                 pairs/s at N=65,536 and N=1,048,576, and the tree code at
                 N=1,048,576 uniform +-3e4 (bench.py:232's input): one eval
                 through the kernels and through the plain versions, its
@@ -41,7 +48,8 @@ Phases, each printing its own lines:
                 plain route on 2D and 3D blobs with uncovered blocks and on
                 the N=1M galaxy merger (1e-5 * max(max|v|, 10), momentum);
                 K1 on the merger's N=1M state against its plain version on
-                4096 rows (1e-5 * max|a|); the N=4M merger under 'auto'
+                4096 rows (1e-5 * max|a|), with the SM clock and power draw
+                during the launch; the N=4M merger under 'auto'
                 (block pass, its overflow, launches of one pass, one pass
                 timed by stage); Simulation of the N=1M merger (force_backend
                 "cuda", collisions resolved to the block pass): 1 warm-up
@@ -75,6 +83,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 
 def fail(msg: str) -> None:
@@ -89,6 +98,86 @@ def require(cond: bool, msg: str) -> None:
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def sass_report(lib_path, cuobjdump) -> list:
+    """Instructions per pair in K1's inner loop and K2's batch test, read
+    from the built library's SASS: lines to print. K1's inner loop is the
+    kernel's shortest backward branch (16 sources x k targets); K2's batch
+    test is the straight run at the head of its second-longest loop, up to
+    the first branch after its first compare (16 sources x 2 targets)."""
+    import collections
+    import re
+
+    proc = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True)
+    funcs, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(3),
+                                m.group(4)))
+    out = []
+    for key, what, pairs in (
+            ("allpairs_kernelILi2ELi2ELb0", "K1 2D k=2 inner loop", 32),
+            ("allpairs_kernelILi2ELi4ELb0", "K1 2D k=4 inner loop", 64),
+            ("allpairs_kernelILi3ELi4ELb0", "K1 3D k=4 inner loop", 64),
+            ("collide_kernelILi2ELb0ELb0", "K2 2D batch test", 32),
+            ("collide_kernelILi3ELb0ELb0", "K2 3D batch test", 32),
+            ("collide_kernelILi2ELb1ELb1", "K5 2D cell test", 32)):
+        ins = next((v for k, v in funcs.items() if key in k), None)
+        if not ins:
+            out.append(f"{what}: not measured (no {key} in the SASS)")
+            continue
+        loops = sorted(((int(t.group(1), 16), a) for a, op, rest in ins
+                        if op.startswith("BRA")
+                        and (t := re.search(r"0x([0-9a-f]+)", rest))
+                        and int(t.group(1), 16) < a),
+                       key=lambda lh: lh[1] - lh[0])
+        body = []
+        if what.startswith("K1"):
+            body = [op for a, op, _ in ins if loops[0][0] <= a <= loops[0][1]]
+        else:
+            lo, hi = loops[-2]
+            for a, op, _ in ins:
+                if lo <= a <= hi:
+                    if (op.startswith(("BRA", "BSSY")) and any(
+                            o.startswith(("FSETP", "ISETP")) for o in body)):
+                        break
+                    body.append(op)
+        count = collections.Counter(op.split(".")[0] for op in body)
+        out.append(f"{what}: {len(body)} instructions for {pairs} pairs, "
+                   f"{len(body) / pairs:.2f} a pair: {dict(count.most_common())}")
+    return out
+
+
+def device_profile(fn, count: int):
+    """(device rows, device busy ms) per unit of work, over one
+    torch.profiler window that runs `fn` once, `count` units' worth (a
+    step, an eval): the rows' intervals are merged, so overlapping rows
+    count once."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, last_end = 0.0, -math.inf
+    for a, b in spans:
+        if b > last_end:
+            busy_us += b - max(a, last_end)
+            last_end = b
+    return len(spans) / count, busy_us / count / 1e3
 
 
 def k5_needed_pairs(tgt, src, max_cheb, chunk=8192) -> float:
@@ -147,7 +236,7 @@ def main() -> None:
     from nbodysim_tpu_torch.kernels import _build
     from nbodysim_tpu_torch.kernels.allpairs import (
         _launch, allpairs_accelerations, allpairs_accelerations_plain,
-        allpairs_accelerations_wide, source_splits)
+        allpairs_accelerations_wide, source_splits, targets_per_thread)
     from nbodysim_tpu_torch.kernels.collide import (
         allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
         rect_pair_deltas_plain)
@@ -192,6 +281,12 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 say("build", line.strip())
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        for line in sass_report(lib_path, cuobjdump):
+            say("build", f"SASS {line}")
+    else:
+        say("build", "SASS: not measured (no cuobjdump beside nvcc)")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -242,6 +337,9 @@ def main() -> None:
                 src_mass=uniform((3001,), 0.1, 10.0)),
         k1_case("g=2.5 N=5000", uniform((5000, 2), -1e4, 1e4),
                 uniform((5000,), 0.1, 10.0), 1.0, g=2.5),
+        k1_case("one target <- one source", uniform((1, 3), -10.0, 10.0),
+                None, 1.0, src_pos=uniform((1, 3), -10.0, 10.0),
+                src_mass=uniform((1,), 0.1, 10.0)),
     ]
 
     # -- 4. K2 against its plain version ---------------------------------------
@@ -260,9 +358,13 @@ def main() -> None:
         p_after = (mass[:, None] * (vel + dv)).sum(0)
         drift = float((p_after - p_before).abs().max())
         p_tol = 1e-2 * float(p_before.abs().max())
-        n_hit = int((rv.abs().sum(-1) + rp.abs().sum(-1) > 0).sum())
-        ok = err_p <= tol and err_v <= tol and drift <= p_tol
-        say("K2", f"{name}: particles hit={n_hit} err_pos={err_p:.3e} "
+        hit_ref = rv.abs().sum(-1) + rp.abs().sum(-1) > 0
+        n_hit = int(hit_ref.sum())
+        same_hits = torch.equal(hit_ref, dv.abs().sum(-1) + dp.abs().sum(-1)
+                                > 0)
+        ok = err_p <= tol and err_v <= tol and drift <= p_tol and same_hits
+        say("K2", f"{name}: particles hit={n_hit} (same set: {same_hits}) "
+            f"err_pos={err_p:.3e} "
             f"err_vel={err_v:.3e} tol={tol:.3e} momentum drift={drift:.3e} "
             f"(tol {p_tol:.3e}) {'ok' if ok else 'FAIL'}")
         require(ok, f"K2 {name} disagrees with its plain version")
@@ -275,11 +377,20 @@ def main() -> None:
         k2_errs.append(k2_case(
             f"{dim}D dense cloud N=4096", uniform((4096, dim), -half, half),
             uniform((4096, dim), -5.0, 5.0), mass, mass.pow(1 / 3) * 1.5))
+    mass = uniform((4097,), 0.5, 2.0)
+    radius = mass.pow(1 / 3) * 1.5
+    mass[::7] = 0.0
+    k2_errs.append(k2_case(
+        "3D cloud N=4097 (ragged tiles, every 7th mass 0)",
+        uniform((4097, 3), -24.0, 24.0), uniform((4097, 3), -5.0, 5.0), mass,
+        radius))
     k2_errs.append(k2_case("2D disc N=25000", disc.pos, disc.vel, disc.mass,
                            disc.radius))
 
     # -- 5. main path --------------------------------------------------------
-    sim = Simulation(SimConfig(n=25_000), scene="uniform_disc", device="cuda")
+    sim = Simulation(SimConfig(n=25_000), scene="uniform_disc")
+    require(sim.state.pos.device.type == "cuda",
+            f"Simulation without a device built on {sim.state.pos.device}")
     require(sim.config.force_backend == "cuda",
             f"force backend resolved to {sim.config.force_backend}")
     sim.run(5)  # warm-up
@@ -327,6 +438,15 @@ def main() -> None:
         f"(tol {tol_x:.3e}) err_vel={err_v:.3e} (tol {tol_v:.3e}) "
         f"{'ok' if ok else 'FAIL'}")
     require(ok, "one step through the kernels disagrees with the plain step")
+    # The step's device work: operations and busy time over 20 profiled
+    # steps (kernel and copy rows of torch.profiler, intervals merged),
+    # against the unprofiled step time of run(200).
+    step_ops, step_busy_ms = device_profile(lambda: sim.run(20), 20)
+    step_idle = 1.0 - step_busy_ms * steps_per_s / 1e3
+    say("main", f"N=25k step: {step_ops:.2f} device operations a step, "
+        f"device busy {step_busy_ms:.4f} ms a step (torch.profiler over 20 "
+        f"steps) against {1e3 / steps_per_s:.4f} ms a step unprofiled: the "
+        f"device idles {100 * step_idle:.1f}%")
 
     # -- 6. timings ----------------------------------------------------------
     def time_ms(fn, iters, warmup=1):
@@ -368,6 +488,10 @@ def main() -> None:
             say("timings", f"{kname} disc N={n}: kernel {ms:.4f} ms "
                 f"({n * n / ms * 1e3:.4e} pairs/s), plain {plain_ms:.4f} ms "
                 f"({n * n / plain_ms * 1e3:.4e} pairs/s)")
+    times[("K2", "evolved")] = (time_ms(k2(st), 20), time_ms(k2_plain(st), 2))
+    say("timings", f"K2 disc N=25000 after 205 steps: kernel "
+        f"{times[('K2', 'evolved')][0]:.4f} ms, plain "
+        f"{times[('K2', 'evolved')][1]:.4f} ms")
     # K2 on a cell-sorted disc: whether the TPU wrapper's sort would pay.
     q = 256
     mn = disc.pos.min(0).values
@@ -535,24 +659,11 @@ def main() -> None:
         f"{bh.bh_near_overflow(cpos, umass, tcfg)}): {tree_over_ms:.4f} ms")
     # Device busy time of the eval (kernel rows of a torch.profiler trace,
     # their intervals merged) against its wall time.
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            tree(True)()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, last_end = 0.0, -math.inf
-    for a, b in spans:
-        if b > last_end:
-            busy_us += b - max(a, last_end)
-            last_end = b
-    if spans:
-        busy_ms = busy_us / 3e3
+    rows, busy_ms = device_profile(
+        lambda: [tree(True)() for _ in range(3)], 3)
+    if rows:
         say("timings", f"tree eval device busy {busy_ms:.4f} ms per eval "
-            f"(torch.profiler, {len(spans)} device rows over 3 evals): "
+            f"(torch.profiler, {3 * rows:.0f} device rows over 3 evals): "
             f"{100 * busy_ms / tree_ms:.1f}% of the unprofiled "
             f"{tree_ms:.4f} ms, so the device idles "
             f"{100 * (1 - busy_ms / tree_ms):.1f}%")
@@ -596,8 +707,10 @@ def main() -> None:
     for name, (ms, plain_ms, bnd, by) in tree_k.items():
         say("timings", f"{name} at the tree's shape: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    o_k = targets_per_thread(opos.shape[0], dev)
     say("timings", f"K1 outliers without the source split: {k1_unsplit:.4f} "
-        f"ms (split into {source_splits(opos.shape[0], n1m, dev)} chunks: "
+        f"ms (split into {source_splits(opos.shape[0], n1m, dev, 32 * o_k)} "
+        f"chunks at {o_k} targets a thread: "
         f"{tree_k['K1 outliers'][0]:.4f} ms)")
 
     # -- 7. tree -------------------------------------------------------------
@@ -895,8 +1008,30 @@ def main() -> None:
 
     # K1 at the main path's own shape and input: the merger's N = 1M state,
     # unsplit, against its plain version on 4096 random target rows.
-    a_m, k1_merger_ms = timed(lambda: allpairs_accelerations(
-        merger.pos, merger.mass, eps_sq=mcfg.eps_sq, g_const=mcfg.g_const))
+    # Three launches, one at a time, with nvidia-smi sampling the card.
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    time.sleep(0.5)
+    k1_merger_runs = []
+    for _ in range(3):
+        a_m, ms = timed(lambda: allpairs_accelerations(
+            merger.pos, merger.mass, eps_sq=mcfg.eps_sq,
+            g_const=mcfg.g_const))
+        k1_merger_runs.append(ms)
+    k1_merger_ms = sum(k1_merger_runs) / 3
+    clocks.terminate()
+    samples = sorted(tuple(map(float, ln.split(","))) for ln in
+                     clocks.communicate()[0].splitlines()
+                     if ln.count(",") == 1)
+    say("collide", "SM clock and power during three 1M x 1M launches "
+        f"({', '.join(f'{t:.4f}' for t in k1_merger_runs)} ms; nvidia-smi "
+        f"every 50 ms, {len(samples)} samples): " + (
+            f"{samples[0][0]:.0f}-{samples[-1][0]:.0f} MHz, median "
+            f"{samples[len(samples) // 2][0]:.0f} MHz, up to "
+            f"{max(w for _, w in samples):.1f} W" if samples else
+            "not measured"))
     rows = torch.randperm(n_m, generator=gen, device=dev)[:4096]
     ref_rows, k1_rows_plain_ms = timed(lambda: allpairs_accelerations_plain(
         merger.pos[rows], None, eps_sq=mcfg.eps_sq, g_const=mcfg.g_const,
@@ -911,7 +1046,7 @@ def main() -> None:
         g_const=mcfg.g_const, src_pos=merger.pos.double(),
         src_mass=merger.mass.double())
     say("collide", f"K1 merger [{n_m} x {n_m}]: {k1_merger_ms:.4f} ms "
-        f"(one launch), 4096 rows against the plain version "
+        f"(mean of three launches), 4096 rows against the plain version "
         f"({k1_rows_plain_ms:.4f} ms): max_abs_err={k1_merger_err:.3e} "
         f"max|a|={scale:.3e} tol={1e-5 * scale:.3e} "
         f"{'ok' if ok else 'FAIL'}; against f64: kernel "
@@ -1291,24 +1426,12 @@ def main() -> None:
     say("timings", f"  stages sum to {sum(stages3.values()):.4f} ms against "
         f"the eval's {tree3_ms:.4f}; the residual's small tier (for an "
         f"overflow of 1-1024) takes {residual3_small_ms:.4f} ms")
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof3:
-        for _ in range(3):
-            bh3.bh3_accelerations(pos3, mass3, cfg3)
-        torch.cuda.synchronize()
-    spans3 = sorted((e.time_range.start, e.time_range.end)
-                    for e in prof3.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy3_us, last_end = 0.0, -math.inf
-    for a, b in spans3:
-        if b > last_end:
-            busy3_us += b - max(a, last_end)
-            last_end = b
-    if spans3:
-        busy3_ms = busy3_us / 3e3
+    rows3, busy3_ms = device_profile(
+        lambda: [bh3.bh3_accelerations(pos3, mass3, cfg3) for _ in range(3)],
+        3)
+    if rows3:
         say("timings", f"octree eval device busy {busy3_ms:.4f} ms per eval "
-            f"(torch.profiler, {len(spans3)} device rows over 3 evals): "
+            f"(torch.profiler, {3 * rows3:.0f} device rows over 3 evals): "
             f"{100 * busy3_ms / tree3_ms:.1f}% of the unprofiled "
             f"{tree3_ms:.4f} ms, so the device idles "
             f"{100 * (1 - busy3_ms / tree3_ms):.1f}%")
@@ -1434,6 +1557,11 @@ def main() -> None:
               allpairs_cu, "nbodysim_tpu/kernels/allpairs.py:56",
               tree_launches["K1"], k1_tree_err,
               *tree_k["K1 outliers"][:2], tree_k["K1 outliers"][2:]),
+        entry("K1 allpairs_accelerations (N=1M merger, 1M x 1M; plain_ms "
+              "for 4096 of the rows)", allpairs_cu,
+              "nbodysim_tpu/kernels/allpairs.py:56", merger_launches["K1"],
+              k1_merger_err, k1_merger_ms, k1_rows_plain_ms,
+              pair_bound(float(n_m) * n_m, 4.0 * n_m * (3 + 2))),
         entry("K2 allpairs_collision_deltas",
               "nbodysim_tpu_torch/csrc/collide.cu",
               "nbodysim_tpu/kernels/collide.py:40", launches["K2"],

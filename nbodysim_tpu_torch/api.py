@@ -3,7 +3,8 @@
 `Simulation` mirrors the reference's `class Simulation` surface
 (Simulation.hpp:49-75: construct -> `step()` -> read state / `frame` / `dt`)
 as a stateful wrapper over the functional core; `simulate` is the functional
-entry point. The device is always named by the caller.
+entry point. `Simulation` runs on the card unless the caller asks for the
+CPU (`device="cpu"`); `simulate` runs where the state lies.
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ def clamp_dt(dt: float) -> Tuple[float, bool]:
 class Simulation:
     """Stateful convenience wrapper (reference: Simulation.hpp:49-75).
 
-    >>> sim = Simulation(SimConfig(n=25_000), scene="uniform_disc",
-    ...                  device="cuda")
+    >>> sim = Simulation(SimConfig(n=25_000), scene="uniform_disc")
     >>> sim.run(100)         # 100 steps: K1 + integration + K2 each
     >>> sim.state.pos        # SoA field access (reference: sim.bodies)
     """
@@ -54,7 +54,7 @@ class Simulation:
         scene: str = "uniform_disc",
         state: Optional[ParticleState] = None,
         *,
-        device,
+        device="cuda",
         **scene_kwargs,
     ):
         self.config = config or SimConfig()

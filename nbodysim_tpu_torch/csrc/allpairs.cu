@@ -10,44 +10,68 @@
 // never |x|^2 - 2 x.y, so near-field pairs keep full precision at
 // coordinates of ~1e5.
 //
-// What bounds it on the H100: arithmetic, not bytes. A pair costs ~10 f32
-// FP ops (2-3 sub, 2-3 fma, 3 mul, 2-3 fma) plus one MUFU rsqrt, and the
-// MUFU pipe (16 ops/clk/SM against 128 FP32 lanes) is the first ceiling;
-// each source is read from device memory once per block of 64 targets.
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit: 1.95e12
-// pairs/s at N=1M, about half the MUFU bound (132 x 16 x ~1.98 GHz = 4.2e12),
-// so the issue rate of the FP ops and the shared-memory load binds first.
-// Design: one thread per (target, source slice). A block is 64 targets x 4
-// source slices; all 256 threads stage 256 sources (x, y, z, G*m) into
-// shared memory per pass as one float4 each, and each thread walks its own
-// 64-entry slice of the tile, so a warp reads one broadcast float4 per pair.
-// Splitting the sources four ways fills the 132 SMs at the main path's
-// N=25k (391 blocks of 256 threads rather than 98 blocks of 256 targets).
-// The four slice sums are added in a fixed order at the end, so the result
-// is deterministic. Each slice sums one tile (64 terms) before adding it to
-// its running total, and that total is compensated (Kahan): at N=1M a slice
-// adds 4096 tile sums, and a plain running total drifted ~1e-5 of max|a|
-// from the blocked plain version on the galaxy merger, whose nuclei
-// dominate the sums. Three more adds per tile and axis, against 64 pairs.
-// The ragged last tile is masked by index.
+// What bounds it on the H100: instruction issue. An SM issues 4 warp-
+// instructions a clock (128 thread-instructions), and the inner loop, read
+// from the SASS (chip_smoke.py prints it from cuobjdump), is 10.31
+// instructions a 2D pair at k = 4 (4 FFMA, 3 FMUL, 2 FADD, one MUFU.RSQ, a
+// quarter LDS.128), 10.62 at k = 2 and 13.31 a 3D pair at k = 4. That caps
+// 2D pairs at ~12.4 a clock per SM (3.25e12/s at 1.98 GHz), below the MUFU
+// pipe's 16 (4.18e12/s, the bound chip_smoke.py states). Measured on an
+// NVIDIA H100 80GB HBM3 at a 700 W power limit, the SM clock at 1980 MHz
+// throughout: 1M x 1M (2D) in 419 ms, 2.62e12 pairs/s, 81% of that cap;
+// N=25k in 0.274 ms; 4096 x 1M in 1.68 ms (2D) and 2.22 ms (3D). The kernel
+// it replaced (one target a thread, a dynamic trip count, rsqrtf with its
+// denormal fix-up) ran at 1.96e12 pairs/s.
+//
+// Design:
+//  * k targets a thread (template K, 2 or 4): one broadcast LDS.128 of a
+//    source feeds k pairs, and the k chains give the scheduler independent
+//    work. A block is 8 warps; warp w walks slice w of every staged tile,
+//    and the 8 slice totals are added in a fixed order at the end, so the
+//    result is deterministic and the block covers only 32 k targets (N=25k
+//    still gives 391 blocks at k = 2, ~3 a SM).
+//  * Sources are packed as they are staged: float4 (x, y, z, G m) per
+//    source, 512 to a tile, and the last tile is padded with inert sources
+//    (mass 0 at 1e18 in every coordinate: d^2 ~ 1e36, r^-3 underflows to 0,
+//    so the term is 0, not NaN, at eps = 0 too). The inner loop therefore
+//    runs a fixed count (64 sources a slice, unrolled by 16) with no bounds
+//    test. A separate packing launch would add a device operation to every
+//    step of the N=25k path, and cp.async copies bytes as they are, so it
+//    could neither fold G in nor turn [S, 2] rows into float4.
+//  * Double-buffered staging with one barrier a tile: each thread loads its
+//    2 sources of tile t+1 into registers before it computes tile t, and
+//    stores them into the other buffer after; the loads' latency hides
+//    behind the tile's 64 k pairs.
+//  * The reciprocal square root is MUFU.RSQ with denormal inputs flushed
+//    (rsqrt.approx.ftz.f32): rsqrtf without -ftz wraps the same MUFU in a
+//    3-instruction denormal fix-up, and for d^2 < 1.2e-38 the weight
+//    m r^-3 overflows to inf either way, so no result changes.
+//  * Each slice sums one tile's 64 terms before adding them to its running
+//    total, and that total is compensated (Kahan): at N=1M a slice adds
+//    2048 tile sums, and a plain running total drifted ~1e-5 of max|a| from
+//    the blocked plain version on the galaxy merger, whose nuclei dominate
+//    the sums. Three more adds per tile and axis, against 64 pairs.
 //
 // Few targets, many sources (the tree code's outliers <- all, 4096 x 1M):
-// 64 blocks would leave half of the 132 SMs idle. The caller then splits
-// the sources into `splits` contiguous chunks along a second grid axis
-// (gridDim.y); each block writes its chunk's partial sums to a scratch
-// array [splits, N, D], and a second pass adds the chunks in index order.
-// No atomics, so the result stays deterministic. With splits == 1 the
-// block writes straight to `out`. The same entry point serves K4 (many
-// targets, few sources: the bulk <- outliers coupling), which needs no
-// split.
+// the caller splits the sources into `splits` contiguous chunks along a
+// second grid axis (gridDim.y); each block writes its chunk's partial sums
+// to a scratch array [splits, N, D], and a second pass adds the chunks in
+// index order. No atomics, so the result stays deterministic. With
+// splits == 1 the block writes straight to `out`. The same entry point
+// serves K4 (many targets, few sources: the bulk <- outliers coupling),
+// which needs no split.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTargets = 64;   // targets per block (blockDim.x)
-constexpr int kSlices = 4;     // source slices per block (blockDim.y)
-constexpr int kTile = kTargets * kSlices;
+constexpr int kWarp = 32;
+constexpr int kSlices = 8;                   // warps a block, one slice each
+constexpr int kThreads = kWarp * kSlices;    // 256
+constexpr int kTile = 512;                   // sources staged per pass
+constexpr int kPerSlice = kTile / kSlices;   // 64 sources a warp a pass
+constexpr int kStage = kTile / kThreads;     // 2 sources a thread a pass
+constexpr float kPadPos = 1e18f;             // where padding sources sit
 
 // sum += x with the running compensation c (no --use_fast_math, so nvcc
 // keeps the order of these adds).
@@ -58,87 +82,142 @@ __device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
   sum = t;
 }
 
-template <int DIM, bool MASK>
-__global__ void __launch_bounds__(kTile)
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Source j packed for the tile: (x, y, z, G m); past the chunk, inert.
+template <int DIM>
+__device__ __forceinline__ float4 pack_source(const float* __restrict__ src,
+                                              const float* __restrict__ mass,
+                                              int j, int end, float g) {
+  if (j >= end) return make_float4(kPadPos, kPadPos, kPadPos, 0.f);
+  float4 q;
+  q.x = src[j * DIM];
+  q.y = src[j * DIM + 1];
+  q.z = DIM == 3 ? src[j * DIM + 2] : 0.f;
+  q.w = g * mass[j];  // G folds into the source mass
+  return q;
+}
+
+template <int DIM, int K, bool MASK>
+__global__ void __launch_bounds__(kThreads)
 allpairs_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
                 const float* __restrict__ src_mass, float* __restrict__ out,
                 int n, int s, int chunk, float eps_sq, float g) {
-  __shared__ float4 tile[kTile];
-  __shared__ float part[kSlices - 1][DIM][kTargets];
+  constexpr int kBlockTargets = kWarp * K;
+  __shared__ float4 tile[2][kTile];
+  __shared__ float part[kSlices - 1][DIM][kBlockTargets];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int lane = ty * kTargets + tx;
-  const int i = blockIdx.x * kTargets + tx;
+  const int lane = threadIdx.x % kWarp;
+  const int slice = threadIdx.x / kWarp;
+  const int first = blockIdx.x * kBlockTargets + lane;
 
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (i < n) {
-    xi = tgt[i * DIM];
-    yi = tgt[i * DIM + 1];
-    if (DIM == 3) zi = tgt[i * DIM + 2];
+  // This thread's targets first + 32 k, k < K (coalesced across the warp).
+  float xi[K], yi[K], zi[K];
+  float ax[K], ay[K], az[K], cx[K], cy[K], cz[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = first + kWarp * k;
+    xi[k] = i < n ? tgt[i * DIM] : 0.f;
+    yi[k] = i < n ? tgt[i * DIM + 1] : 0.f;
+    zi[k] = DIM == 3 && i < n ? tgt[i * DIM + 2] : 0.f;
+    ax[k] = ay[k] = az[k] = cx[k] = cy[k] = cz[k] = 0.f;
   }
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  float cx = 0.f, cy = 0.f, cz = 0.f;  // compensation of the running totals
 
   // This block's chunk of sources: [s_begin, s_end), chunk a multiple of
   // kTile; blockIdx.y == 0 and chunk >= s without a split.
   const int s_begin = blockIdx.y * chunk;
   const int s_end = min(s, s_begin + chunk);
-  for (int base = s_begin; base < s_end; base += kTile) {
-    const int j = base + lane;
-    if (j < s_end) {
-      float4 q;
-      q.x = src[j * DIM];
-      q.y = src[j * DIM + 1];
-      q.z = DIM == 3 ? src[j * DIM + 2] : 0.f;
-      q.w = g * src_mass[j];  // G folds into the source mass
-      tile[lane] = q;
+  const int tiles = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile
+                                    : 0;
+  float4 next[kStage];
+  if (tiles > 0) {
+#pragma unroll
+    for (int q = 0; q < kStage; ++q)
+      tile[0][threadIdx.x + q * kThreads] = pack_source<DIM>(
+          src, src_mass, s_begin + threadIdx.x + q * kThreads, s_end, g);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < tiles; ++t) {
+    const bool more = t + 1 < tiles;
+    if (more) {  // tile t+1 into registers; its loads fly during tile t
+      const int base = s_begin + (t + 1) * kTile + threadIdx.x;
+#pragma unroll
+      for (int q = 0; q < kStage; ++q)
+        next[q] = pack_source<DIM>(src, src_mass, base + q * kThreads, s_end,
+                                   g);
     }
-    __syncthreads();
-    const int count = min(kTargets, s_end - base - ty * kTargets);
-    const float4* slice = tile + ty * kTargets;
-    float tx_sum = 0.f, ty_sum = 0.f, tz_sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < count; ++k) {
-      const float4 q = slice[k];
-      const float dx = q.x - xi;
-      const float dy = q.y - yi;
-      float d_sq = eps_sq + dx * dx + dy * dy;
-      float dz = 0.f;
-      if (DIM == 3) {
-        dz = q.z - zi;
-        d_sq += dz * dz;
+    const float4* sl = tile[t & 1] + slice * kPerSlice;
+    float sx[K], sy[K], sz[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sx[k] = sy[k] = sz[k] = 0.f;
+#pragma unroll 16
+    for (int jj = 0; jj < kPerSlice; ++jj) {
+      const float4 q = sl[jj];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float dx = q.x - xi[k];
+        const float dy = q.y - yi[k];
+        float d_sq = eps_sq + dx * dx + dy * dy;
+        float dz = 0.f;
+        if (DIM == 3) {
+          dz = q.z - zi[k];
+          d_sq += dz * dz;
+        }
+        const float inv = rsqrt_ftz(d_sq);
+        float w = q.w * (inv * inv * inv);
+        if (MASK) w = d_sq > 0.f ? w : 0.f;  // eps = 0: rsqrt(0) = inf
+        sx[k] += w * dx;
+        sy[k] += w * dy;
+        if (DIM == 3) sz[k] += w * dz;
       }
-      const float inv = rsqrtf(d_sq);
-      float w = q.w * (inv * inv * inv);
-      if (MASK) w = d_sq > 0.f ? w : 0.f;  // eps = 0: rsqrt(0) = inf
-      tx_sum += w * dx;
-      ty_sum += w * dy;
-      if (DIM == 3) tz_sum += w * dz;
     }
-    kahan_add(ax, cx, tx_sum);
-    kahan_add(ay, cy, ty_sum);
-    if (DIM == 3) kahan_add(az, cz, tz_sum);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      kahan_add(ax[k], cx[k], sx[k]);
+      kahan_add(ay[k], cy[k], sy[k]);
+      if (DIM == 3) kahan_add(az[k], cz[k], sz[k]);
+    }
+    if (more) {
+#pragma unroll
+      for (int q = 0; q < kStage; ++q)
+        tile[(t + 1) & 1][threadIdx.x + q * kThreads] = next[q];
+    }
+    // One barrier a tile: buffer (t+1)&1 was last read in pass t-1, which
+    // every thread finished before the barrier that ended it.
     __syncthreads();
   }
 
-  if (ty > 0) {
-    part[ty - 1][0][tx] = ax;
-    part[ty - 1][1][tx] = ay;
-    if (DIM == 3) part[ty - 1][DIM - 1][tx] = az;
+  if (slice > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      part[slice - 1][0][lane + kWarp * k] = ax[k];
+      part[slice - 1][1][lane + kWarp * k] = ay[k];
+      if (DIM == 3) part[slice - 1][DIM - 1][lane + kWarp * k] = az[k];
+    }
   }
   __syncthreads();
-  if (ty == 0 && i < n) {
-#pragma unroll
-    for (int p = 0; p < kSlices - 1; ++p) {
-      ax += part[p][0][tx];
-      ay += part[p][1][tx];
-      if (DIM == 3) az += part[p][DIM - 1][tx];
-    }
+  if (slice == 0) {
     float* o = out + static_cast<size_t>(blockIdx.y) * n * DIM;
-    o[i * DIM] = ax;
-    o[i * DIM + 1] = ay;
-    if (DIM == 3) o[i * DIM + 2] = az;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = first + kWarp * k;
+#pragma unroll
+      for (int p = 0; p < kSlices - 1; ++p) {
+        ax[k] += part[p][0][lane + kWarp * k];
+        ay[k] += part[p][1][lane + kWarp * k];
+        if (DIM == 3) az[k] += part[p][DIM - 1][lane + kWarp * k];
+      }
+      if (i < n) {
+        o[i * DIM] = ax[k];
+        o[i * DIM + 1] = ay[k];
+        if (DIM == 3) o[i * DIM + 2] = az[k];
+      }
+    }
   }
 }
 
@@ -154,14 +233,17 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   out[k] = a;
 }
 
-template <int DIM, bool MASK>
+template <int DIM, int K>
 void launch(const float* tgt, const float* src, const float* src_mass,
             float* dst, int n, int s, int splits, int chunk, float eps_sq,
             float g, cudaStream_t stream) {
-  const dim3 block(kTargets, kSlices);
-  const dim3 grid((n + kTargets - 1) / kTargets, splits);
-  allpairs_kernel<DIM, MASK><<<grid, block, 0, stream>>>(
-      tgt, src, src_mass, dst, n, s, chunk, eps_sq, g);
+  const dim3 grid((n + kWarp * K - 1) / (kWarp * K), splits);
+  if (eps_sq == 0.f)
+    allpairs_kernel<DIM, K, true><<<grid, kThreads, 0, stream>>>(
+        tgt, src, src_mass, dst, n, s, chunk, eps_sq, g);
+  else
+    allpairs_kernel<DIM, K, false><<<grid, kThreads, 0, stream>>>(
+        tgt, src, src_mass, dst, n, s, chunk, eps_sq, g);
 }
 
 }  // namespace
@@ -170,32 +252,28 @@ extern "C" int nb_sum_splits(const float* part, float* out, int count,
                              int splits, void* stream);
 
 // splits >= 1 source chunks; with splits > 1, `scratch` holds
-// splits * n * dim floats.
+// splits * n * dim floats. k: targets a thread, 2 or 4 (a block covers
+// 32 k targets).
 extern "C" int nb_allpairs_accelerations(
     const float* tgt, const float* src, const float* src_mass, float* out,
-    float* scratch, int n, int s, int dim, int splits, float eps_sq, float g,
-    void* stream) {
+    float* scratch, int n, int s, int dim, int splits, int k, float eps_sq,
+    float g, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool mask = eps_sq == 0.f;
-  if (n <= 0 || s <= 0 || splits <= 0 || (splits > 1 && scratch == nullptr))
+  if (n <= 0 || s <= 0 || splits <= 0 || (splits > 1 && scratch == nullptr) ||
+      (k != 2 && k != 4) || (dim != 2 && dim != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   // Chunks are whole tiles, so only the last one is ragged.
   const int per = (s + splits - 1) / splits;
   const int chunk = (per + kTile - 1) / kTile * kTile;
   float* dst = splits > 1 ? scratch : out;
-  if (dim == 2) {
-    if (mask) launch<2, true>(tgt, src, src_mass, dst, n, s, splits, chunk,
-                              eps_sq, g, st);
-    else launch<2, false>(tgt, src, src_mass, dst, n, s, splits, chunk,
-                          eps_sq, g, st);
-  } else if (dim == 3) {
-    if (mask) launch<3, true>(tgt, src, src_mass, dst, n, s, splits, chunk,
-                              eps_sq, g, st);
-    else launch<3, false>(tgt, src, src_mass, dst, n, s, splits, chunk,
-                          eps_sq, g, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dim == 2 && k == 2)
+    launch<2, 2>(tgt, src, src_mass, dst, n, s, splits, chunk, eps_sq, g, st);
+  else if (dim == 2)
+    launch<2, 4>(tgt, src, src_mass, dst, n, s, splits, chunk, eps_sq, g, st);
+  else if (k == 2)
+    launch<3, 2>(tgt, src, src_mass, dst, n, s, splits, chunk, eps_sq, g, st);
+  else
+    launch<3, 4>(tgt, src, src_mass, dst, n, s, splits, chunk, eps_sq, g, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return nb_sum_splits(scratch, out, n * dim, splits, stream);

@@ -11,19 +11,41 @@
 // collide_pair.cuh, shared with K6. Target side only; zero-mass sources
 // never overlap.
 //
-// What bounds it on the H100: the overlap test, ~8 f32 ops per pair, since
-// overlaps are rare (~1e-3 of pairs on the disc); the resolve branch costs
-// ~4x the test but runs only for overlapping pairs. Measured on an NVIDIA
-// H100 80GB HBM3 at a 700 W power limit: 1.31e12 pairs/s on the N=25k disc
-// (where no pair overlaps), below K1: each pair reads two float4 from shared
-// memory and builds d^2 without FMA. Design: the skeleton of K1 (64 targets
-// x 4 source slices per block, sources staged through shared memory as two
-// float4 per source: x, y, z, m and vx, vy, vz, r, plus an int4 of cell
-// coordinates when the cell mask is on). A per-pair branch takes the place
-// of the TPU kernel's per-tile skip; a warp pays for it only when one of its
-// 32 targets overlaps the source in hand. The TPU wrapper's cell sort is not
-// done (a per-pair branch does not need it; see PERF.md), nor K5's packed
-// [N, 16] IO or its float compare of cells: cells are compared as int32.
+// What bounds it on the H100: the overlap test, since overlaps are rare
+// (none on the N=25k disc in 205 steps). In explicitly rounded f32, so that
+// decisions match the plain version bit for bit, a 2D test is 2 FADD, 2 FMUL
+// and an FADD for d^2, an FADD and an FMUL for (r_i + r_j)^2 and one FSETP
+// that folds the result into the target's predicate, plus half an LDS.128:
+// ~8.5 issue slots (chip_smoke.py prints the SASS count of a batch), ~12 in
+// 3D; K5's cell test is as many integer instructions. Measured on an NVIDIA
+// H100 80GB HBM3 at a 700 W power limit: N=25k in 0.237 ms (2.6e12
+// pairs/s), N=65,536 in 1.52 ms; K5 at [1M x 16384] with the cell mask in
+// 6.70 ms. The kernel it replaced (two LDS.128, a loop that was not
+// unrolled and a branch into the resolve path on every pair) ran at
+// 1.31e12 pairs/s.
+//
+// Design, K1's skeleton:
+//  * 2 targets a thread (4 took 126-226 registers and ran slower at every
+//    shape measured), 8 warps a block, warp w
+//    walks slice w of every staged tile; slice sums added in a fixed order.
+//  * Sources packed as they are staged, 256 to a tile, double-buffered
+//    through registers with one barrier a tile: float4 (x, y, z, r) for the
+//    test, where r is NaN for a source of mass <= 0 (r_i + NaN fails
+//    d^2 <= r^2, which is exactly the plain version's `valid = m_j > 0`),
+//    and float4 (vx, vy, vz, m), read only by the resolve path. Targets that
+//    are out of range, or of mass <= 0 under K5, carry a NaN radius too.
+//    Padding sources sit at 1e18 with a NaN radius. With the cell mask, an
+//    int4 of cells a source.
+//  * The test runs over a batch of 16 sources with no branch, ORing each
+//    target's hits into one predicate (with the cell mask, the batch test
+//    is the cell test alone: it is the rarer one on K5's residual shape).
+//    A thread branches into the resolve path once a batch, only for the
+//    targets whose predicate is set, and there collide_pair repeats the
+//    exact test pair by pair: the TPU kernel's per-tile skip at thread
+//    granularity. The sum order within a slice is the source order.
+//  * d^2, r and r^2 keep __fsub_rn/__fmul_rn/__fadd_rn in the plain
+//    version's column order, so overlap and separating/approaching
+//    decisions are those of collision_deltas_plain.
 //
 // Few targets, many sources (K5's big-body pass, 64 x N): the caller splits
 // the sources into `splits` contiguous chunks along gridDim.y, as K1 does;
@@ -46,13 +68,63 @@ using nb_collide::abs_wrap;
 using nb_collide::collide_pair;
 using nb_collide::sub_wrap;
 
-constexpr int kTargets = 64;
-constexpr int kSlices = 4;
-constexpr int kTile = kTargets * kSlices;
+constexpr int kWarp = 32;
+constexpr int kSlices = 8;                  // warps a block, one slice each
+constexpr int kThreads = kWarp * kSlices;   // 256
+constexpr int kTile = kThreads;             // sources staged per pass, 1 a thread
+constexpr int kPerSlice = kTile / kSlices;  // 32
+constexpr int kBatch = 16;                  // sources a branch-free test
+constexpr int K = 2;                        // targets a thread
+constexpr int kBlockTargets = kWarp * K;
+constexpr float kPadPos = 1e18f;
+constexpr int kPadCell = 1 << 30;
+
+struct Staged {
+  float4 p, v;
+  int4 c;
+};
+
+// Source j as staged: (x, y, z, r or NaN), (vx, vy, vz, m), cells.
+template <int DIM, bool CHEB>
+__device__ __forceinline__ Staged stage_source(
+    const float* __restrict__ spos, const float* __restrict__ svel,
+    const float* __restrict__ smass, const float* __restrict__ srad,
+    const int* __restrict__ scell, int j, int end) {
+  Staged st;
+  if (j >= end) {
+    st.p = make_float4(kPadPos, kPadPos, kPadPos, __int_as_float(0x7fc00000));
+    st.v = make_float4(0.f, 0.f, 0.f, 0.f);
+    st.c = make_int4(kPadCell, kPadCell, kPadCell, 0);
+    return st;
+  }
+  const float m = smass[j];
+  st.p.x = spos[j * DIM];
+  st.p.y = spos[j * DIM + 1];
+  st.p.z = DIM == 3 ? spos[j * DIM + 2] : 0.f;
+  st.p.w = m > 0.f ? srad[j] : __int_as_float(0x7fc00000);
+  st.v.x = svel[j * DIM];
+  st.v.y = svel[j * DIM + 1];
+  st.v.z = DIM == 3 ? svel[j * DIM + 2] : 0.f;
+  st.v.w = m;
+  if (CHEB)
+    st.c = make_int4(scell[j * DIM], scell[j * DIM + 1],
+                     DIM == 3 ? scell[j * DIM + 2] : 0, 0);
+  return st;
+}
+
+template <int DIM>
+__device__ __forceinline__ int cheb_dist(const int* ci, int4 q) {
+  const int sc[3] = {q.x, q.y, q.z};
+  int cheb = 0;
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+    cheb = max(cheb, abs_wrap(sub_wrap(sc[c], ci[c])));
+  return cheb;
+}
 
 // RECT: separate sources and the target-mass mask (K5); CHEB: the cell mask.
 template <int DIM, bool RECT, bool CHEB>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kThreads)
 collide_kernel(const float* __restrict__ tpos, const float* __restrict__ tvel,
                const float* __restrict__ tmass,
                const float* __restrict__ trad, const int* __restrict__ tcell,
@@ -61,104 +133,142 @@ collide_kernel(const float* __restrict__ tpos, const float* __restrict__ tvel,
                const float* __restrict__ srad, const int* __restrict__ scell,
                float* __restrict__ out, int n, int s, int chunk,
                int max_cheb, float impulse) {
-  __shared__ float4 tile_p[kTile];  // x, y, z, m
-  __shared__ float4 tile_v[kTile];  // vx, vy, vz, r
-  __shared__ int4 tile_c[CHEB ? kTile : 1];
-  __shared__ float part[kSlices - 1][2 * DIM][kTargets];
+  __shared__ float4 tile_p[2][kTile];
+  __shared__ float4 tile_v[2][kTile];
+  __shared__ int4 tile_c[CHEB ? 2 : 1][CHEB ? kTile : 1];
+  __shared__ float part[kSlices - 1][2 * DIM][kBlockTargets];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int lane = ty * kTargets + tx;
-  const int i = blockIdx.x * kTargets + tx;
+  const int lane = threadIdx.x % kWarp;
+  const int slice = threadIdx.x / kWarp;
+  const int first = blockIdx.x * kBlockTargets + lane;
 
-  float pi[DIM], vi[DIM], mi = 0.f, ri = 0.f;
-  int ci[3] = {0, 0, 0};
+  float pi[K][DIM], vi[K][DIM], mi[K], ri[K];
+  int ci[K][3];
+  float acc_p[K][DIM], acc_v[K][DIM];
 #pragma unroll
-  for (int c = 0; c < DIM; ++c) {
-    pi[c] = i < n ? tpos[i * DIM + c] : 0.f;
-    vi[c] = i < n ? tvel[i * DIM + c] : 0.f;
-    if (CHEB) ci[c] = i < n ? tcell[i * DIM + c] : 0;
-  }
-  if (i < n) {
-    mi = tmass[i];
-    ri = trad[i];
-  }
-  const bool active = i < n && (!RECT || mi > 0.f);
-  float acc_p[DIM], acc_v[DIM];
+  for (int k = 0; k < K; ++k) {
+    const int i = first + kWarp * k;
+    const bool in = i < n;
 #pragma unroll
-  for (int c = 0; c < DIM; ++c) acc_p[c] = acc_v[c] = 0.f;
+    for (int c = 0; c < DIM; ++c) {
+      pi[k][c] = in ? tpos[i * DIM + c] : 0.f;
+      vi[k][c] = in ? tvel[i * DIM + c] : 0.f;
+      ci[k][c] = CHEB && in ? tcell[i * DIM + c] : 0;
+      acc_p[k][c] = acc_v[k][c] = 0.f;
+    }
+    mi[k] = in ? tmass[i] : 0.f;
+    // An inactive target never overlaps: its radius is NaN.
+    const bool active = in && (!RECT || mi[k] > 0.f);
+    ri[k] = active ? trad[i] : __int_as_float(0x7fc00000);
+  }
 
   // This block's chunk of sources: [s_begin, s_end), chunk a multiple of
   // kTile; blockIdx.y == 0 and chunk >= s without a split.
   const int s_begin = blockIdx.y * chunk;
   const int s_end = min(s, s_begin + chunk);
-  for (int base = s_begin; base < s_end; base += kTile) {
-    const int j = base + lane;
-    if (j < s_end) {
-      float4 p, v;
-      p.x = spos[j * DIM];
-      p.y = spos[j * DIM + 1];
-      p.z = DIM == 3 ? spos[j * DIM + 2] : 0.f;
-      p.w = smass[j];
-      v.x = svel[j * DIM];
-      v.y = svel[j * DIM + 1];
-      v.z = DIM == 3 ? svel[j * DIM + 2] : 0.f;
-      v.w = srad[j];
-      tile_p[lane] = p;
-      tile_v[lane] = v;
-      if (CHEB) {
-        tile_c[lane] = make_int4(scell[j * DIM], scell[j * DIM + 1],
-                                 DIM == 3 ? scell[j * DIM + 2] : 0, 0);
-      }
-    }
-    __syncthreads();
-    const int count = min(kTargets, s_end - base - ty * kTargets);
-    const int first = ty * kTargets;
-    if (active) {
-      for (int k = 0; k < count; ++k) {
-        const float4 p = tile_p[first + k];
-        if (CHEB) {
-          const int4 q = tile_c[first + k];
-          const int sc[3] = {q.x, q.y, q.z};
-          int cheb = 0;
+  const int tiles = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile
+                                    : 0;
+  if (tiles > 0) {
+    const Staged st = stage_source<DIM, CHEB>(
+        spos, svel, smass, srad, scell, s_begin + threadIdx.x, s_end);
+    tile_p[0][threadIdx.x] = st.p;
+    tile_v[0][threadIdx.x] = st.v;
+    if (CHEB) tile_c[0][threadIdx.x] = st.c;
+  }
+  __syncthreads();
+
+  for (int t = 0; t < tiles; ++t) {
+    const bool more = t + 1 < tiles;
+    Staged next;
+    if (more)  // tile t+1 into registers; its loads fly during tile t
+      next = stage_source<DIM, CHEB>(spos, svel, smass, srad, scell,
+                                     s_begin + (t + 1) * kTile + threadIdx.x,
+                                     s_end);
+    const int buf = t & 1;
+    const int base = slice * kPerSlice;
+#pragma unroll 1
+    for (int b0 = base; b0 < base + kPerSlice; b0 += kBatch) {
+      bool hit[K];
 #pragma unroll
-          for (int c = 0; c < DIM; ++c)
-            cheb = max(cheb, abs_wrap(sub_wrap(sc[c], ci[c])));
-          if (cheb > max_cheb) continue;
+      for (int k = 0; k < K; ++k) hit[k] = false;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (CHEB) {
+          const int4 q = tile_c[buf][b0 + b];
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            hit[k] |= cheb_dist<DIM>(ci[k], q) <= max_cheb;
+        } else {
+          const float4 q = tile_p[buf][b0 + b];
+          const float sp[3] = {q.x, q.y, q.z};
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            float d[DIM];
+#pragma unroll
+            for (int c = 0; c < DIM; ++c) d[c] = __fsub_rn(sp[c], pi[k][c]);
+            const float d_sq = nb_collide::dot_rn<DIM>(d, d);
+            const float r = __fadd_rn(ri[k], q.w);
+            hit[k] |= d_sq <= __fmul_rn(r, r);
+          }
         }
-        const float4 q = tile_v[first + k];
-        const float sp[3] = {p.x, p.y, p.z};
-        const float sv[3] = {q.x, q.y, q.z};
-        collide_pair<DIM>(pi, vi, mi, ri, sp, sv, p.w, q.w, impulse, acc_p,
-                          acc_v);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!hit[k]) continue;
+        // The resolve path: the exact test and the pair math, in order.
+        for (int b = 0; b < kBatch; ++b) {
+          if (CHEB && cheb_dist<DIM>(ci[k], tile_c[buf][b0 + b]) > max_cheb)
+            continue;
+          const float4 p = tile_p[buf][b0 + b];
+          const float4 v = tile_v[buf][b0 + b];
+          const float sp[3] = {p.x, p.y, p.z};
+          const float sv[3] = {v.x, v.y, v.z};
+          collide_pair<DIM>(pi[k], vi[k], mi[k], ri[k], sp, sv, v.w, p.w,
+                            impulse, acc_p[k], acc_v[k]);
+        }
       }
     }
+    if (more) {
+      tile_p[buf ^ 1][threadIdx.x] = next.p;
+      tile_v[buf ^ 1][threadIdx.x] = next.v;
+      if (CHEB) tile_c[buf ^ 1][threadIdx.x] = next.c;
+    }
+    // One barrier a tile: buffer buf^1 was last read in pass t-1.
     __syncthreads();
   }
 
-  if (ty > 0) {
+  if (slice > 0) {
 #pragma unroll
-    for (int c = 0; c < DIM; ++c) {
-      part[ty - 1][c][tx] = acc_p[c];
-      part[ty - 1][DIM + c][tx] = acc_v[c];
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int c = 0; c < DIM; ++c) {
+        part[slice - 1][c][lane + kWarp * k] = acc_p[k][c];
+        part[slice - 1][DIM + c][lane + kWarp * k] = acc_v[k][c];
+      }
     }
   }
   __syncthreads();
-  if (ty == 0 && i < n) {
-#pragma unroll
-    for (int sl = 0; sl < kSlices - 1; ++sl) {
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        acc_p[c] += part[sl][c][tx];
-        acc_v[c] += part[sl][DIM + c][tx];
-      }
-    }
+  if (slice == 0) {
     float* dpos = out + static_cast<size_t>(blockIdx.y) * 2 * n * DIM;
     float* dvel = dpos + static_cast<size_t>(n) * DIM;
 #pragma unroll
-    for (int c = 0; c < DIM; ++c) {
-      dpos[i * DIM + c] = acc_p[c];
-      dvel[i * DIM + c] = acc_v[c];
+    for (int k = 0; k < K; ++k) {
+      const int i = first + kWarp * k;
+#pragma unroll
+      for (int sl = 0; sl < kSlices - 1; ++sl) {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          acc_p[k][c] += part[sl][c][lane + kWarp * k];
+          acc_v[k][c] += part[sl][DIM + c][lane + kWarp * k];
+        }
+      }
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          dpos[i * DIM + c] = acc_p[k][c];
+          dvel[i * DIM + c] = acc_v[k][c];
+        }
+      }
     }
   }
 }
@@ -169,28 +279,27 @@ void launch(const float* tpos, const float* tvel, const float* tmass,
             const float* svel, const float* smass, const float* srad,
             const int* scell, float* out, int n, int s, int splits,
             int chunk, int max_cheb, float impulse, cudaStream_t stream) {
-  const dim3 block(kTargets, kSlices);
-  const dim3 grid((n + kTargets - 1) / kTargets, splits);
-  collide_kernel<DIM, RECT, CHEB><<<grid, block, 0, stream>>>(
+  const dim3 grid((n + kBlockTargets - 1) / kBlockTargets, splits);
+  collide_kernel<DIM, RECT, CHEB><<<grid, kThreads, 0, stream>>>(
       tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad, scell, out, n,
       s, chunk, max_cheb, impulse);
 }
 
 template <int DIM>
-void launch_rect(const float* tpos, const float* tvel, const float* tmass,
-                 const float* trad, const int* tcell, const float* spos,
-                 const float* svel, const float* smass, const float* srad,
-                 const int* scell, float* out, int n, int s, int splits,
-                 int chunk, int max_cheb, float impulse, cudaStream_t st) {
-  if (max_cheb >= 0) {
-    launch<DIM, true, true>(tpos, tvel, tmass, trad, tcell, spos, svel, smass,
-                            srad, scell, out, n, s, splits, chunk, max_cheb,
-                            impulse, st);
-  } else {
+void launch_rect(const float* tpos, const float* tvel,
+                 const float* tmass, const float* trad, const int* tcell,
+                 const float* spos, const float* svel, const float* smass,
+                 const float* srad, const int* scell, float* out, int n,
+                 int s, int splits, int chunk, int max_cheb, float impulse,
+                 cudaStream_t st) {
+  if (max_cheb >= 0)
+    launch<DIM, true, true>(tpos, tvel, tmass, trad, tcell, spos, svel,
+                            smass, srad, scell, out, n, s, splits, chunk,
+                            max_cheb, impulse, st);
+  else
     launch<DIM, true, false>(tpos, tvel, tmass, trad, tcell, spos, svel,
                              smass, srad, scell, out, n, s, splits, chunk, 0,
                              impulse, st);
-  }
 }
 
 }  // namespace
@@ -201,16 +310,14 @@ extern "C" int nb_collision_deltas(
     const float* radius, float* out, int n, int dim, float impulse,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dim == 2) {
+  if (n <= 0 || (dim != 2 && dim != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 2)
     launch<2, false, false>(pos, vel, mass, radius, nullptr, pos, vel, mass,
                             radius, nullptr, out, n, n, 1, n, 0, impulse, st);
-  } else if (dim == 3) {
+  else
     launch<3, false, false>(pos, vel, mass, radius, nullptr, pos, vel, mass,
                             radius, nullptr, out, n, n, 1, n, 0, impulse, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,21 +333,19 @@ extern "C" int nb_rect_pair_deltas(
     float impulse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || s <= 0 || splits <= 0 || (splits > 1 && scratch == nullptr) ||
-      (max_cheb >= 0 && (tcell == nullptr || scell == nullptr)))
+      (max_cheb >= 0 && (tcell == nullptr || scell == nullptr)) ||
+      (dim != 2 && dim != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   // Chunks are whole tiles, so only the last one is ragged.
   const int per = (s + splits - 1) / splits;
   const int chunk = (per + kTile - 1) / kTile * kTile;
   float* dst = splits > 1 ? scratch : out;
-  if (dim == 2) {
+  if (dim == 2)
     launch_rect<2>(tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad,
                    scell, dst, n, s, splits, chunk, max_cheb, impulse, st);
-  } else if (dim == 3) {
+  else
     launch_rect<3>(tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad,
                    scell, dst, n, s, splits, chunk, max_cheb, impulse, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return nb_sum_splits(scratch, out, 2 * n * dim, splits, stream);

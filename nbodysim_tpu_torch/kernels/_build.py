@@ -40,9 +40,10 @@ _f = ctypes.c_float
 # Every pointer and the stream are c_void_p: left undeclared, ctypes would
 # pass them as 32-bit ints and cut the address.
 SIGNATURES = {
-    # tgt, src, src_mass, out, scratch, n, s, dim, splits, eps_sq, g, stream
+    # tgt, src, src_mass, out, scratch, n, s, dim, splits, k, eps_sq, g,
+    # stream
     "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                                  _f, _f, _vp),
+                                  _i, _f, _f, _vp),
     # pos, vel, mass, radius, out, n, dim, impulse, stream
     "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp),
     # tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad, scell, out,

@@ -18,6 +18,9 @@ tiling workaround; on the card K4 is a launch of the same kernel.
     blocked over targets and sources (elementwise multiply-and-sum, no
     matmul, so TF32 can never touch it). The CPU path, and the reference the
     kernel is held to on the card.
+  * `packed_sources` — the sources as the kernel stages them: float4
+    (x, y, z, G m) rows, padded to whole tiles with inert sources; plain
+    torch, for the tests that hold the padding inert.
 """
 
 from __future__ import annotations
@@ -28,6 +31,27 @@ from typing import Optional
 import torch
 
 from nbodysim_tpu_torch.core.blocking import pairwise_blocked
+
+
+TILE = 512           # sources a pass of the kernel stages (kTile)
+PAD_POS = 1e18       # where its padding sources sit (kPadPos), mass 0
+WARP = 32            # a block covers WARP * k targets, k targets a thread
+
+
+def packed_sources(src_pos: torch.Tensor, src_mass: torch.Tensor,
+                   g_const: float = 1.0, tile: int = TILE) -> torch.Tensor:
+    """[S', 4] rows (x, y, z, G m), z = 0 in 2D, S' = S rounded up to a
+    whole `tile`; the padding rows are (PAD_POS, PAD_POS, PAD_POS, 0), whose
+    terms are exactly 0 (d^2 ~ 1e36, r^-3 underflows), also at eps = 0."""
+    s, dim = src_pos.shape
+    packed = torch.full((-(-s // tile) * tile, 4), PAD_POS,
+                        dtype=src_pos.dtype, device=src_pos.device)
+    packed[:, 3] = 0.0
+    packed[:s, :dim] = src_pos
+    if dim == 2:
+        packed[:s, 2] = 0.0
+    packed[:s, 3] = g_const * src_mass
+    return packed
 
 
 def _pairwise_acc_block(tgt_pos, src_pos, src_mass, eps_sq, g_const):
@@ -130,11 +154,24 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def source_splits(n: int, s: int, device: torch.device) -> int:
+def targets_per_thread(n: int, device: torch.device) -> int:
+    """k for a launch over N targets: 4 where the launch still has >= 3
+    blocks of 128 targets per SM, or is split over its sources anyway;
+    else 2, whose 64-target blocks spread N=25k evenly over the SMs (391
+    blocks, against 196 at k = 4, which left SMs with 1 block beside SMs
+    with 2). k = 4 halves the shared-memory loads per pair."""
+    sms = _sm_count(device)
+    if -(-n // (WARP * 2)) < sms or -(-n // (WARP * 4)) >= 3 * sms:
+        return 4
+    return 2
+
+
+def source_splits(n: int, s: int, device: torch.device,
+                  block_targets: int) -> int:
     """Source chunks for a launch of N targets x S sources: 1 while the
-    card has at least one 64-target block per SM; below that, enough
-    chunks for ~8 blocks per SM, each chunk at least 1024 sources."""
-    blocks = -(-n // 64)
+    card has at least one block of `block_targets` per SM; below that,
+    enough chunks for ~8 blocks per SM, each chunk at least 1024 sources."""
+    blocks = -(-n // block_targets)
     sms = _sm_count(device)
     if blocks >= sms:
         return 1
@@ -142,9 +179,11 @@ def source_splits(n: int, s: int, device: torch.device) -> int:
 
 
 def _launch(pos, src_pos, src_mass, eps_sq, g_const, name,
-            splits: Optional[int] = None) -> torch.Tensor:
+            splits: Optional[int] = None,
+            k: Optional[int] = None) -> torch.Tensor:
     """One launch of csrc/allpairs.cu on CUDA tensors (`splits` source
-    chunks; default `source_splits`). Counts nothing: the wrappers do."""
+    chunks, default `source_splits`; `k` targets a thread, 2 or 4, default
+    `targets_per_thread`). Counts nothing: the wrappers do."""
     if pos.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {pos.device}")
     from nbodysim_tpu_torch.kernels._build import check, f32_args, library
@@ -162,8 +201,10 @@ def _launch(pos, src_pos, src_mass, eps_sq, g_const, name,
             f"{name} indexes with 32-bit ints: N * D must be < 2^31")
     if n == 0 or s == 0:
         return torch.zeros_like(tgt)
+    if k is None:
+        k = targets_per_thread(n, device)
     if splits is None:
-        splits = source_splits(n, s, device)
+        splits = source_splits(n, s, device, WARP * k)
     out = torch.empty_like(tgt)
     scratch = (torch.empty((splits, n, dim), dtype=torch.float32,
                            device=device) if splits > 1 else None)
@@ -173,6 +214,6 @@ def _launch(pos, src_pos, src_mass, eps_sq, g_const, name,
         status = lib.nb_allpairs_accelerations(
             tgt.data_ptr(), src.data_ptr(), src_m.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), n, s, dim,
-            splits, float(eps_sq), float(g_const), stream)
+            splits, k, float(eps_sq), float(g_const), stream)
     check(status, "nb_allpairs_accelerations")
     return out

@@ -20,12 +20,16 @@ the H100 and how its design answers that.
     `rect_pair_deltas.launches`.
   * `rect_pair_deltas_plain` — K5's plain version: the body of the JAX
     package's `_cheb_pair_deltas_blocked` over [2048, 2048] blocks.
+  * `staged_sources` — the sources as the kernel stages them: radius NaN
+    where the mass is <= 0 (such a source fails every overlap test, which
+    is the plain version's mass mask), padded to whole tiles with inert
+    sources; plain torch, for the tests that hold the staging exact.
 
 The TPU wrapper of K2 sorted particles by a coarse cell key so that its
-per-tile skip fired; the CUDA kernel branches per pair and takes particles in
-the order given. K5's packed [N, 16] IO and its float compare of cells were
-TPU layouts; the kernel takes the fields as they are and compares int32
-cells.
+per-tile skip fired; the CUDA kernel tests a batch of sources without a
+branch and resolves only the batches with a hit, in the order given. K5's
+packed [N, 16] IO and its float compare of cells were TPU layouts; the
+kernel takes the fields as they are and compares int32 cells.
 """
 
 from __future__ import annotations
@@ -35,6 +39,27 @@ from typing import Optional, Tuple
 import torch
 
 from nbodysim_tpu_torch.core.blocking import pairwise_blocked
+
+
+TILE = 256          # sources a pass of the kernel stages (kTile)
+PAD_POS = 1e18      # where its padding sources sit (kPadPos)
+BLOCK_TARGETS = 64  # 2 targets a thread, 32 threads a slice
+
+
+def staged_sources(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
+                   radius: torch.Tensor, tile: int = TILE
+                   ) -> Tuple[torch.Tensor, ...]:
+    """(pos, vel, mass, radius) rounded up to a whole `tile` of rows: the
+    radius is NaN where the mass is <= 0, and the padding rows sit at
+    PAD_POS with zero velocity and mass and a NaN radius."""
+    s = pos.shape[0]
+    pad = -(-s // tile) * tile - s
+    nan = torch.full_like(radius, float("nan"))
+    r = torch.where(mass > 0.0, radius, nan)
+    return (torch.cat([pos, pos.new_full((pad, pos.shape[1]), PAD_POS)]),
+            torch.cat([vel, vel.new_zeros((pad, vel.shape[1]))]),
+            torch.cat([mass, mass.new_zeros(pad)]),
+            torch.cat([r, r.new_full((pad,), float("nan"))]))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -237,7 +262,7 @@ def rect_pair_deltas(
             if c.device != device:
                 raise ValueError(f"tensor on {c.device}, expected {device}")
         tc, sc = (c.to(torch.int32).contiguous() for c in (tgt[4], src[4]))
-    splits = source_splits(n, m, device)
+    splits = source_splits(n, m, device, BLOCK_TARGETS)
     out = torch.empty((2, n, dim), dtype=torch.float32, device=device)
     scratch = (torch.empty((splits, 2, n, dim), dtype=torch.float32,
                            device=device) if splits > 1 else None)

@@ -4,7 +4,8 @@ Ported: `uniform_disc` (the reference's flagship scene), `kepler`,
 `kepler_system`, `plummer` (BASELINE config 2) and `galaxy_merger` (BASELINE
 config 5). The other scenes of the JAX package keep their names here and
 raise NotImplementedError until they are ported (ROADMAP Queue A).
-Every constructor takes the target `device` explicitly.
+Every constructor builds on the card (`device="cuda"`) unless the caller
+passes another device, such as `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ SCENES: Dict[str, Callable[..., ParticleState]] = {
 }
 
 
-def init_scene(name: str, config: SimConfig, *, device,
+def init_scene(name: str, config: SimConfig, *, device="cuda",
                **kwargs) -> ParticleState:
-    """Instantiate a named scene for the given config on `device`."""
+    """Instantiate a named scene for the given config on `device` (the
+    card unless the caller asks for another, e.g. device="cpu")."""
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; available: {sorted(SCENES)}")
     return SCENES[name](config, device=device, **kwargs)

@@ -82,7 +82,7 @@ def uniform_disc(
     n: int | None = None,
     ref_normalize_bug: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> ParticleState:
     """Lorenz-attractor disc with a central massive body, on `device`.
 

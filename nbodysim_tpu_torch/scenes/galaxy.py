@@ -112,7 +112,7 @@ def galaxy_merger(
     impact_parameter: float | None = None,
     approach_speed: float | None = None,
     *,
-    device,
+    device="cuda",
 ) -> ParticleState:
     """Two discs of n/2 bodies each, approaching with an impact parameter,
     on `device`; radius = cbrt(mass)."""

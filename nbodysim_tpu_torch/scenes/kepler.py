@@ -23,7 +23,7 @@ def kepler_orbit(
     semi_major: float = 1000.0,
     eccentricity: float = 0.0,
     *,
-    device,
+    device="cuda",
 ) -> ParticleState:
     """Two-body orbit (central + satellite), started at apoapsis, with both
     velocities about the barycenter (total momentum zero). With G=1:
@@ -62,7 +62,7 @@ def kepler_system(
     r_min: float = 500.0,
     r_max: float = 5000.0,
     *,
-    device,
+    device="cuda",
 ) -> ParticleState:
     """Central body + (n-1) light test bodies on circular orbits at radii
     evenly spaced in [r_min, r_max], random phases from a `torch.Generator`

@@ -70,7 +70,7 @@ def plummer_sphere(
     scale_radius: float = 1000.0,
     virialize: bool = True,
     *,
-    device,
+    device="cuda",
 ) -> ParticleState:
     """A Plummer model of n bodies (default config.n) in config.dim
     dimensions on `device`; radius = cbrt(mass). Virialization computes the

@@ -8,6 +8,7 @@ kernel; f32 sums taken in another order differ by far less.
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 from nbodysim_tpu.kernels.allpairs import allpairs_accelerations as jax_k1
@@ -15,8 +16,8 @@ from nbodysim_tpu.kernels.allpairs import (
     allpairs_accelerations_wide as jax_k4)
 from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu_torch.kernels.allpairs import (
-    allpairs_accelerations, allpairs_accelerations_plain,
-    allpairs_accelerations_wide)
+    PAD_POS, TILE, allpairs_accelerations, allpairs_accelerations_plain,
+    allpairs_accelerations_wide, packed_sources)
 from nbodysim_tpu_torch.physics import forces as tforces
 
 from _torch_helpers import as_np, rand_system, as_t
@@ -130,3 +131,40 @@ def test_wide_matches_jax(dim):
         src_mass=as_t(src_m)))
     np.testing.assert_array_equal(got, plain)
 
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("eps_sq", [0.0, 1.0])
+@pytest.mark.parametrize("offset", [0.0, 6e4])
+def test_packed_padded_sources_match_raw(dim, eps_sq, offset):
+    """The kernel's staged sources (x, y, z, G m), padded to a whole tile
+    with inert rows at PAD_POS: the plain version on them equals the plain
+    version and the JAX package on the raw sources, at eps = 0 (with a
+    coincident pair) and eps > 0, in 2D and 3D, near and far from the
+    origin; the padding rows alone give exactly 0."""
+    pos, _ = rand_system(300, dim=dim, seed=12)
+    src, src_m = rand_system(77, dim=dim, seed=13)
+    pos, src = pos + np.float32(offset), src + np.float32(offset)
+    src_m[::9] = 0.0
+    pos[5] = src[3]
+    packed = packed_sources(as_t(src), as_t(src_m), g_const=2.5, tile=64)
+    assert packed.shape == (128, 4)
+    assert bool((packed[77:] == torch.tensor(
+        [PAD_POS, PAD_POS, PAD_POS, 0.0])).all())
+    assert packed_sources(as_t(src), as_t(src_m)).shape[0] == TILE
+    got = as_np(allpairs_accelerations_plain(
+        as_t(pos), None, eps_sq=eps_sq, src_pos=packed[:, :dim],
+        src_mass=packed[:, 3]))
+    raw = as_np(allpairs_accelerations_plain(
+        as_t(pos), None, eps_sq=eps_sq, g_const=2.5, src_pos=as_t(src),
+        src_mass=as_t(src_m)))
+    ref = np.asarray(jforces.direct_accelerations(
+        jnp.asarray(pos), None, eps_sq=eps_sq, g_const=2.5,
+        src_pos=jnp.asarray(src), src_mass=jnp.asarray(src_m)))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, raw, atol=1e-6 * np.abs(raw).max())
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+    pad_only = as_np(allpairs_accelerations_plain(
+        as_t(pos), None, eps_sq=eps_sq, src_pos=packed[77:, :dim],
+        src_mass=packed[77:, 3]))
+    np.testing.assert_array_equal(pad_only, 0.0)

@@ -8,6 +8,7 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import nbodysim_tpu as nb
 import nbodysim_tpu_torch as nt
@@ -15,7 +16,8 @@ from nbodysim_tpu.kernels.collide import (
     allpairs_collision_deltas as jax_k2)
 from nbodysim_tpu.physics.collisions import _dense_pass as jax_dense
 from nbodysim_tpu_torch.kernels.collide import (
-    allpairs_collision_deltas, collision_deltas_plain)
+    PAD_POS, _pair_deltas, allpairs_collision_deltas, collision_deltas_plain,
+    staged_sources)
 from nbodysim_tpu_torch.physics.collisions import (
     _dense_pass, resolve_collisions)
 
@@ -110,3 +112,48 @@ def test_pair_matches_native_oracle():
     np.testing.assert_allclose(as_np(out.pos), [op1, op2], atol=1e-5)
     np.testing.assert_allclose(as_np(out.vel), [ov1, ov2], atol=1e-5)
     assert out.pos.device == CPU
+
+
+def _deltas_unmasked(tgt, src, impulse=1.5):
+    """The pair math of `collision_deltas_plain` with no mass mask: only
+    the sources' radii decide which pairs can overlap."""
+    tp, tv, tm, tr = tgt
+    sp, sv, sm, sr = src
+    msum = tm[:, None] + sm[None, :]
+    w1 = sm[None, :] / torch.where(msum > 0.0, msum, 1.0)
+    dpos, dvel = _pair_deltas(
+        sp[None] - tp[:, None], sv[None] - tv[:, None], w1,
+        tr[:, None] + sr[None, :], torch.ones_like(w1, dtype=torch.bool),
+        impulse)
+    return dpos.sum(1), dvel.sum(1)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("offset", [0.0, 6e4])
+def test_staged_sources_match_raw(dim, offset):
+    """The kernel's staged sources (radius NaN where the mass is <= 0, rows
+    padded to a whole tile at PAD_POS): the pair math with NO mass mask on
+    them gives exactly the plain version's deltas, and the JAX kernel's
+    within 1e-5 * max(scale, 10), near and far from the origin; the same
+    targets are hit."""
+    pos, vel, mass, radius = rand_cloud(300, dim, seed=21 + dim)
+    pos = pos + np.float32(offset)
+    mass[::7] = 0.0
+    fields = tuple(map(as_t, (pos, vel, mass, radius)))
+    staged = staged_sources(*fields, tile=64)
+    assert staged[0].shape == (320, dim)
+    assert bool((staged[0][300:] == PAD_POS).all())
+    assert bool(torch.isnan(staged[3][300:]).all())
+    assert bool((torch.isnan(staged[3][:300]) == (fields[2] <= 0)).all())
+    dp, dv = _deltas_unmasked(fields, staged)
+    rp, rv = collision_deltas_plain(*fields, impulse=1.5)
+    np.testing.assert_array_equal(as_np(dp), as_np(rp))
+    np.testing.assert_array_equal(as_np(dv), as_np(rv))
+    hit = (rp.abs().sum(-1) + rv.abs().sum(-1)) > 0
+    assert int(hit.sum()) > 50
+    assert bool(((dp.abs().sum(-1) + dv.abs().sum(-1) > 0) == hit).all())
+    jdp, jdv = jax_k2(*map(jnp.asarray, (pos, vel, mass, radius)),
+                      impulse=1.5, interpret=True)
+    tol = 1e-5 * max(float(np.abs(vel + as_np(rv)).max()), 10.0)
+    np.testing.assert_allclose(as_np(dp), np.asarray(jdp), atol=tol)
+    np.testing.assert_allclose(as_np(dv), np.asarray(jdv), atol=tol)

@@ -230,3 +230,24 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """Simulation, init_scene and every scene constructor reached through it
+    take device="cuda" unless the caller passes another (read from the
+    signatures: nothing here touches a GPU); device="cpu" still builds on
+    the CPU."""
+    import inspect
+
+    from nbodysim_tpu_torch.scenes import SCENES, init_scene
+
+    ported = [fn for name, fn in SCENES.items()
+              if name not in ("spiral", "kuzmin")]
+    for fn in (nt.Simulation.__init__, init_scene, *ported):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.default == "cuda", fn
+        assert param.kind is inspect.Parameter.KEYWORD_ONLY, fn
+    state = init_scene("uniform_disc", nt.SimConfig(n=64), device="cpu")
+    assert state.pos.device == CPU
+    sim = nt.Simulation(nt.SimConfig(n=64), device="cpu")
+    assert sim.state.pos.device == CPU and sim.device == CPU

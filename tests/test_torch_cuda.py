@@ -14,7 +14,7 @@ import torch
 
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu_torch.kernels.allpairs import (
-    allpairs_accelerations, allpairs_accelerations_plain,
+    _launch, allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
 from nbodysim_tpu_torch.kernels.collide import (
     allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
@@ -402,3 +402,94 @@ def test_merger_resolves_to_block_and_steps(dev):
     sim.run(2)
     assert block_collision_deltas.launches - k6 == 2
     assert bool(torch.isfinite(sim.state.pos).all())
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("eps_sq", [0.0, 1.0])
+@pytest.mark.parametrize("n,s", [(1, 1), (1, 700), (100, 1), (100, 333),
+                                 (1000, None), (1000, 2049),
+                                 (130, 300_000)])
+def test_k1_ragged_sizes_match_plain(dev, k, dim, eps_sq, n, s):
+    """K1 at k targets a thread: one target, fewer sources than a tile, a
+    ragged last tile, one source, sources = targets, and few targets x many
+    sources (the split, with chunks past the end); at eps = 0 with a
+    coincident pair."""
+    g = _gen(dev, 30 + dim)
+    pos = _uniform(g, (n, dim), -1e3, 1e3)
+    if s is None:
+        src, src_m = pos, _uniform(g, (n,), 0.1, 10.0)
+        pos[7] = pos[3]
+    else:
+        src, src_m = (_uniform(g, (s, dim), -1e3, 1e3),
+                      _uniform(g, (s,), 0.1, 10.0))
+        pos[0] = src[0]
+    src_m[::5] = 0.0
+    got = _launch(pos, src, src_m, eps_sq, 1.5, "K1", k=k)
+    ref = allpairs_accelerations_plain(pos, None, eps_sq=eps_sq, g_const=1.5,
+                                       src_pos=src, src_mass=src_m)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_k1_k2_k5_launches_are_deterministic(dev):
+    """No atomics: two launches give the same bits, split or not."""
+    g = _gen(dev, 40)
+    pos = _uniform(g, (5000, 2), -1e3, 1e3)
+    mass = _uniform(g, (5000,), 0.1, 10.0)
+    src = _uniform(g, (200_000, 2), -1e3, 1e3)
+    src_m = _uniform(g, (200_000,), 0.1, 10.0)
+    for fn in (lambda: allpairs_accelerations(pos, mass, eps_sq=1.0),
+               lambda: allpairs_accelerations(
+                   pos[:100], None, eps_sq=1.0, src_pos=src,
+                   src_mass=src_m),
+               lambda: allpairs_collision_deltas(
+                   pos, pos * 0.01, mass, mass + 30.0, impulse=1.5)[1]):
+        assert torch.equal(fn(), fn())
+    cloud = _cloud(g, 4096, 2, 37.0)
+    fields = cloud + (torch.floor(cloud[0] / 3.0).to(torch.int32),)
+    a = rect_pair_deltas(tuple(f[:64] for f in fields), fields, dim=2,
+                         impulse=1.5, max_cheb=1)
+    b = rect_pair_deltas(tuple(f[:64] for f in fields), fields, dim=2,
+                         impulse=1.5, max_cheb=1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n", [1, 2, 100, 1000, 4097])
+def test_k2_ragged_sizes_match_plain(dev, dim, n):
+    """K2 on colliding clouds (every 7th mass 0): one particle, two
+    overlapping ones, fewer than a tile, ragged tiles; within
+    1e-5 * max(max|v|, 10) of the plain version, and the same particles
+    get non-zero deltas."""
+    g = _gen(dev, 50 + dim)
+    half = (37.0 if dim == 2 else 24.0) * (max(n, 2) / 4096) ** (1 / dim)
+    pos, vel, mass, radius = _cloud(g, n, dim, half)
+    if n == 2:
+        pos[1] = pos[0] + 0.5
+        mass[:] = 1.0
+    got = allpairs_collision_deltas(pos, vel, mass, radius, impulse=1.5)
+    ref = collision_deltas_plain(pos, vel, mass, radius, impulse=1.5)
+    torch.cuda.synchronize()
+    assert _close(got, ref, vel + ref[1])
+    hit_ref = (ref[0].abs().sum(-1) + ref[1].abs().sum(-1)) > 0
+    hit = (got[0].abs().sum(-1) + got[1].abs().sum(-1)) > 0
+    assert torch.equal(hit, hit_ref)
+    if n >= 2:
+        assert bool(hit_ref.any())
+
+
+@pytest.mark.parametrize("max_cheb", [1, None])
+def test_k5_ragged_3d_matches_plain(dev, max_cheb):
+    """K5 in 3D with ragged tiles on both sides."""
+    g = _gen(dev, 60)
+    src, tgt = _cloud(g, 3001, 3, 24.0), _cloud(g, 1000, 3, 24.0)
+    cell_of = (lambda p: torch.floor(p / 3.0).to(torch.int32))
+    tgt, src = tgt + (cell_of(tgt[0]),), src + (cell_of(src[0]),)
+    got = rect_pair_deltas(tgt, src, dim=3, impulse=1.5, max_cheb=max_cheb)
+    ref = rect_pair_deltas_plain(tgt, src, dim=3, impulse=1.5,
+                                 max_cheb=max_cheb)
+    torch.cuda.synchronize()
+    assert _close(got, ref, tgt[1] + ref[1])
+    assert float(ref[1].abs().max()) > 1e-3
