@@ -27,18 +27,26 @@ Phases, each printing its own lines:
   6. timings  — kernel and plain times at the main path's shapes (K2 on the
                 initial and the evolved disc), K1
                 pairs/s at N=65,536 and N=1,048,576, and the tree code at
-                N=1,048,576 uniform +-3e4 (bench.py:232's input): one eval
+                N=1,048,576 uniform +-3e4 (bench.py:232's input, from a
+                generator of its own): one eval
                 through the kernels and through the plain versions, its
                 stage split, and K3, K4 and K1 (outliers <- all) at the
-                eval's shapes beside their plain versions and bounds;
-  7. tree     — K3 against its plain version on random partially filled
-                bucket grids and on the N=1M grid, K4 at [1M x 4096], K1 at
-                [4096 x 1M], the whole tree eval through the kernels against
-                the plain route (1e-5 * max|a|) and against exact K1 forces
-                (median relative error < 1e-2), Simulation(SimConfig(n=1M,
-                enable_collisions=False)) under 'auto' running 20 steps
-                with K1, K3 and K4 launched exactly once per step, and the
-                N=131,072 disc raising NotImplementedError (it needs the
+                eval's shapes beside their plain versions and bounds, with
+                K3's pairs needed against the lane-pairs its warps issue
+                (a model estimate);
+  7. tree     — K3 against its plain version (1e-5 * max|a| below each
+                cell's count, exactly 0 above it) on random partially
+                filled bucket grids, on grids filled the force path's way
+                (rr 0-4, K < 16 and = 16, every cell full, massless
+                particles in a cell's last occupied slot, eps = 0 with
+                coincident pairs) and on the N=1M grid, K4 at [1M x 4096],
+                K1 at [4096 x 1M], the whole tree eval through the kernels
+                against the plain route (1e-5 * max|a|) and against exact K1
+                forces (median relative error < 1e-2),
+                Simulation(SimConfig(n=1M, enable_collisions=False)) under
+                'auto' running 20 steps with K1, K3 and K4 launched exactly
+                once per step and no other kernel, and the N=131,072 disc
+                raising NotImplementedError (it needs the
                 deep-overflow chain, not ported);
   8. collide  — K5 against its plain version on 2D and 3D colliding clouds
                 (max_cheb 1 and None), at both big-body shapes [64 x 1M] and
@@ -56,11 +64,15 @@ Phases, each printing its own lines:
                 step, then run(3) with K1 and K6 launched once per step and
                 K5 at least twice; one bucket pass on phase 6's N=1M uniform
                 input with random velocities under 'auto';
-  9. tree3d   — K7 against its plain version on random partially filled 3D
-                bucket grids (rr = 1..4, eps = 0) and on the N=1M cube's
-                grid, K1 at [4096 x 1M] and K4 at [1M x 4096] in 3D, the
+  9. tree3d   — K7 against its plain version, as K3 in phase 7, on random
+                partially filled 3D bucket grids (rr = 1..4, eps = 0), on
+                grids filled the force path's way (rr 1-4, full cells,
+                massless last slots, coincident pairs) and on the N=1M
+                cube's grid, with its pairs needed against the lane-pairs
+                issued (a model estimate), K1 at [4096 x 1M] and K4 at [1M x 4096] in 3D, the
                 octree eval at N=1,048,576 uniform +-3e4 (profiling.py:99's
-                input; its bucket overflow and residual tier printed) through
+                input, from a generator of its own; its bucket overflow
+                and residual tier printed) through
                 the kernels against the plain route (1e-5 * max|a|) and
                 against exact K1 forces on 4096 rows (median relative error
                 < 1.5e-2), one eval timed whole and by stage with its device
@@ -219,6 +231,74 @@ def k6_needed_pairs(s, planes) -> float:
     return float((cum[hi.long()] - cum[lo.long()]).sum() - kt.shape[1])
 
 
+def near_pairs(counts_w, rows: int, rr: int, cap: int):
+    """Pair counts of the near-field kernels (K3 in 2D, K7 in 3D) on a grid
+    with occupancy `counts_w` [rows + 2rr, res(, res)] (halo included):
+    (needed, issued, every_slot). `needed`: each occupied target slot
+    against the occupied slots of its (2rr+1)^D cells, the pairs the
+    kernel's active lanes evaluate. `issued`: a model estimate, not a
+    measurement, of the lane-pairs the warps issue: each of a warp's
+    (2rr+1)^(D-1) runs charged 32 lanes x its longest lane's run, the
+    compacted targets of a tile (its shape read from the kernel library)
+    mapped onto warps of 32 in cell order, the tile's sources in one chunk.
+    `every_slot`: all K slots of every cell against the occupied sources,
+    the work of a kernel with a thread for every slot."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from nbodysim_tpu_torch.kernels import _build
+
+    dim = counts_w.dim()
+    res = counts_w.shape[-1]
+    width = 2 * rr + 1
+    tile = (ctypes.c_int * 3)()
+    _build.check(_build.library().nb_nearfield_tile(dim, tile),
+                 "nb_nearfield_tile")
+    tile = tuple(tile)
+    tile_cells = tile[0] * tile[1] * tile[2]
+    tile_warps = (tile_cells * cap + 31) // 32
+    cw = counts_w.to(torch.float64)
+    # Runs along the innermost axis, then one per line offset.
+    pz = F.pad(cw, (rr, rr) + ((rr, rr) if dim == 3 else ()))
+    zsum = sum(pz[..., oc:oc + res] for oc in range(width))
+    if dim == 2:
+        runs = torch.stack([zsum[oa:oa + rows] for oa in range(width)], -1)
+    else:
+        runs = torch.stack([zsum[oa:oa + rows, ob:ob + res]
+                            for oa in range(width) for ob in range(width)],
+                           -1)
+    tgt = cw[rr:rr + rows]                      # [rows, res(, res)]
+    needed = float((tgt * runs.sum(-1)).sum())
+    idx = torch.meshgrid(*(torch.arange(n, device=cw.device)
+                           for n in tgt.shape), indexing="ij")
+    if dim == 2:
+        idx = (idx[0], torch.zeros_like(idx[0]), idx[1])
+    n_tiles = [(n + t - 1) // t for n, t in zip(
+        (rows, res if dim == 3 else 1, res), tile)]
+    block = ((idx[0] // tile[0]) * n_tiles[1] + idx[1] // tile[1]) \
+        * n_tiles[2] + idx[2] // tile[2]
+    local = ((idx[0] % tile[0]) * tile[1] + idx[1] % tile[1]) * tile[2] \
+        + idx[2] % tile[2]
+    order = torch.argsort((block * tile_cells + local).reshape(-1))
+    blk = block.reshape(-1)[order]
+    cnt = tgt.reshape(-1)[order].long()
+    run = runs.reshape(-1, runs.shape[-1])[order]
+    excl = torch.cumsum(cnt, 0) - cnt
+    start = torch.full((int(blk.max()) + 1,), 1 << 62, dtype=torch.long,
+                       device=cw.device).scatter_reduce(0, blk, excl, "amin")
+    first = excl - start[blk]
+    live = cnt > 0
+    warps = torch.zeros((start.shape[0] * tile_warps, run.shape[-1]),
+                        dtype=torch.float64, device=cw.device)
+    for w in (first // 32, (first + cnt - 1).clamp_min(0) // 32):
+        key = (blk * tile_warps + w)[live]
+        warps.scatter_reduce_(0, key[:, None].expand(-1, run.shape[-1]),
+                              run[live], "amax")
+    return needed, float(32 * warps.sum()), float(cap * runs.sum(-1).sum())
+
+
 def main() -> None:
     import torch
 
@@ -228,8 +308,6 @@ def main() -> None:
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-
-    import torch.nn.functional as F
 
     from nbodysim_tpu_torch import ParticleState, SimConfig, Simulation
     from nbodysim_tpu_torch.diagnostics.metrics import kinetic_energy
@@ -291,8 +369,77 @@ def main() -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    def uniform(shape, lo, hi, g=gen):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    def own_generator(seed):
+        """A generator for one main-path input alone, so that the checks
+        drawn from `gen` before it cannot change what the main path runs."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def occupied_grid(rows, width, slots, r, dim, mode):
+        """A near-field bucket grid filled the force path's way (halo
+        included): a count per cell, the slots below it filled, the slots
+        above empty. 'occupied': counts uniform in 0..K, one cell in 8 with
+        a massless particle in its last occupied slot (a heavy body the
+        tree zeroed); 'full': every slot of every cell; 'coincident':
+        'occupied' with slot 1 put onto slot 0 wherever a cell holds
+        both."""
+        cells = (rows + 2 * r,) + (width,) * (dim - 1)
+        shape = cells + (slots,)
+        if mode == "full":
+            counts = torch.full(cells, slots, dtype=torch.int32, device=dev)
+        else:
+            counts = torch.randint(0, slots + 1, cells, generator=gen,
+                                   device=dev, dtype=torch.int32)
+        occ = torch.arange(slots, device=dev) < counts[..., None]
+        pos = [torch.where(occ, uniform(shape, -5.0, 5.0), 0.0)
+               for _ in range(dim)]
+        m = torch.where(occ, uniform(shape, 0.1, 2.0), 0.0)
+        if mode != "full":
+            pick = (torch.rand(cells, generator=gen, device=dev) < 0.125) & (
+                counts > 0)
+            last = (counts.long() - 1).clamp_min(0)[..., None]
+            m = torch.where(torch.zeros(shape, dtype=torch.bool, device=dev)
+                            .scatter_(-1, last, pick[..., None]), 0.0, m)
+        if mode == "coincident":
+            for p in pos:
+                p[..., 1] = torch.where(counts >= 2, p[..., 0], p[..., 1])
+        return (*pos, m), counts
+
+    def random_counts(grid):
+        """Random slot masks: every slot counts as occupied."""
+        return torch.full(grid[0].shape[:-1], grid[0].shape[-1],
+                          dtype=torch.int32, device=dev)
+
+    def near_case(phase, name, grid, counts, eps_sq, rows, r):
+        """K3 (2D grid) or K7 (3D) against its plain version: the slots
+        below each count within 1e-5 * max|a|, exactly 0 from it up."""
+        dim = len(grid) - 1
+        kname = "K3" if dim == 2 else "K7"
+        kernel, plain = ((bucket_stencil, bucket_stencil_plain) if dim == 2
+                         else (bucket_stencil3, bucket_stencil3_plain))
+        got = kernel(*grid, counts=counts, rr=r, eps_sq=eps_sq,
+                     center_rows=rows)
+        ref = plain(*grid, r, eps_sq, rows)
+        torch.cuda.synchronize()
+        occ = (torch.arange(grid[0].shape[-1], device=dev)
+               < counts[r:r + rows, ..., None])
+        require(all(bool(torch.isfinite(a).all()) for a in got),
+                f"{kname} {name}: non-finite")
+        err = max(float((a[occ] - b[occ]).abs().max())
+                  for a, b in zip(got, ref))
+        scale = max(float(b[occ].abs().max()) for b in ref)
+        zeros = not any(bool(a[~occ].any()) for a in got)
+        ok = err <= 1e-5 * scale and zeros
+        say(phase, f"{kname} {name}: max_abs_err={err:.3e} over "
+            f"{int(occ.sum())} occupied slots, max|a|={scale:.3e} "
+            f"tol={1e-5 * scale:.3e}, {int((~occ).sum())} slots past the "
+            f"counts {'all 0' if zeros else 'NOT 0'} {'ok' if ok else 'FAIL'}")
+        require(ok, f"{kname} {name} disagrees with its plain version")
+        return err
 
     # -- 3. K1 against its plain version ---------------------------------------
     def k1_case(name, pos, mass, eps_sq, g=1.0, src_pos=None, src_mass=None,
@@ -534,8 +681,9 @@ def main() -> None:
         return bound(nbytes, 13.0 * pairs, pairs)
 
     # bench.py:232's input for the force headline and the tree code.
-    upos = uniform((1 << 20, 2), -30000.0, 30000.0)
-    umass = uniform((1 << 20,), 0.1, 10.0)
+    square_gen = own_generator(6)
+    upos = uniform((1 << 20, 2), -30000.0, 30000.0, square_gen)
+    umass = uniform((1 << 20,), 0.1, 10.0, square_gen)
     for n in (65_536, 1_048_576):
         pos = (upos if n == 1 << 20 else
                uniform((n, 2), -30000.0, 30000.0))
@@ -614,10 +762,12 @@ def main() -> None:
         lambda: bh._l2p_eval(local, ci, upos, corner, size, levels), 10)
     stages["sort and bucket scatter"] = time_ms(lambda: bh._bucket_grid(
         upos, ext["tree_mass"], ci, flat_nf, res, cap, rr), 10)
+    k3_counts = buckets.counts
     stages["K3 near field"] = time_ms(lambda: bucket_stencil(
-        *buckets.grid, rr=rr, eps_sq=eps, center_rows=res), 20)
-    nax, nay = bucket_stencil(*buckets.grid, rr=rr, eps_sq=eps,
-                              center_rows=res)
+        *buckets.grid, counts=k3_counts, rr=rr, eps_sq=eps,
+        center_rows=res), 20)
+    nax, nay = bucket_stencil(*buckets.grid, counts=k3_counts, rr=rr,
+                              eps_sq=eps, center_rows=res)
     stages["bucket gather"] = time_ms(
         lambda: bh._bucket_gather(buckets, (nax, nay), res, cap), 10)
     acc_s = bh._bucket_gather(buckets, (nax, nay), res, cap)
@@ -671,16 +821,15 @@ def main() -> None:
         say("timings", "tree eval device busy: not measured (the profiler "
             "recorded no device rows)")
 
-    # K3, K4 and K1 at the eval's shapes: kernel, plain, bound.
-    # Occupied slots per cell, and their sum over each cell's (2rr+1)^2
-    # neighbours (zero past the grid's columns; the halo rows are zero).
-    occ = F.pad((buckets.grid[2] != 0).sum(-1).to(torch.float64), (rr, rr))
-    box = sum(occ[ox:ox + res, oy:oy + res]
-              for ox in range(2 * rr + 1) for oy in range(2 * rr + 1))
-    k3_pairs = float((occ[rr:rr + res, rr:rr + res] * box).sum())
-    k3_written = float(cap * box.sum())
+    # K3, K4 and K1 at the eval's shapes: kernel, plain, bound. The pairs
+    # from the grid's occupancy (the bucket counts).
+    k3_pairs, k3_issued, k3_written = near_pairs(k3_counts, res, rr, cap)
     k3_full = float(res * res * cap * cap * (2 * rr + 1) ** 2)
-    k3_bytes = 4.0 * (3 * buckets.grid[0].numel() + 2 * res * res * cap)
+    # Bytes: the occupied slots' x, y, m and the counts read once (the
+    # kernel stages only those), both outputs written whole (the zeros past
+    # the counts too).
+    k3_bytes = 4.0 * (3 * float(k3_counts.sum()) + k3_counts.numel()
+                      + 2 * res * res * cap)
     k3_bound, k3_by = pair_bound(k3_pairs, k3_bytes)
     k3_plain = time_ms(lambda: bucket_stencil_plain(
         *buckets.grid, rr, eps, res), 2)
@@ -701,9 +850,14 @@ def main() -> None:
     }
     k1_unsplit = time_ms(lambda: _launch(opos, upos, k1_src_m, eps, gc, "K1",
                                          splits=1), 10)
-    say("timings", f"K3 N=1M grid: {k3_pairs:.4e} occupied pairs (the "
-        f"bound's work), {k3_written:.4e} evaluated (every target slot x "
-        f"occupied sources), {k3_full:.4e} in the full K x K stencil")
+    say("timings", f"K3 N=1M grid: {k3_pairs:.4e} occupied pairs needed "
+        f"(the bound's work; what the kernel's active lanes evaluate), "
+        f"{k3_issued:.4e} lane-pairs issued with each warp's idle lanes "
+        f"({k3_issued / k3_pairs:.3f}x; a model estimate from the counts "
+        f"and the library's tile, not measured), {k3_written:.4e} for every "
+        f"target slot x occupied sources (a thread-a-slot kernel's work), "
+        f"{k3_full:.4e} in the full K x K stencil; K3 "
+        f"{k3_pairs / stages['K3 near field'] * 1e3:.4e} needed pairs/s")
     for name, (ms, plain_ms, bnd, by) in tree_k.items():
         say("timings", f"{name} at the tree's shape: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
@@ -714,26 +868,17 @@ def main() -> None:
         f"{tree_k['K1 outliers'][0]:.4f} ms)")
 
     # -- 7. tree -------------------------------------------------------------
-    def k3_case(name, grid, eps_sq, rows, r):
-        got = bucket_stencil(*grid, rr=r, eps_sq=eps_sq, center_rows=rows)
-        ref = bucket_stencil_plain(*grid, r, eps_sq, rows)
-        torch.cuda.synchronize()
-        require(all(bool(torch.isfinite(a).all()) for a in got),
-                f"K3 {name}: non-finite")
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        scale = max(float(b.abs().max()) for b in ref)
-        ok = err <= 1e-5 * scale
-        say("tree", f"K3 {name}: max_abs_err={err:.3e} max|a|={scale:.3e} "
-            f"tol={1e-5 * scale:.3e} {'ok' if ok else 'FAIL'}")
-        require(ok, f"K3 {name} disagrees with its plain version")
-        return err
-
     def random_grid(rows, width, slots, r):
         shape = (rows + 2 * r, width, slots)
         m = uniform(shape, 0.0, 2.0)
         m = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.4,
                         m, 0.0)
         return uniform(shape, -5.0, 5.0), uniform(shape, -5.0, 5.0), m
+
+    def k3_case(name, grid, eps_sq, rows, r, counts=None):
+        if counts is None:
+            counts = random_counts(grid)
+        return near_case("tree", name, grid, counts, eps_sq, rows, r)
 
     k3_errs = [
         k3_case("random 40%-filled 12x32x8, rr=2", random_grid(12, 32, 8, 2),
@@ -742,9 +887,17 @@ def main() -> None:
                 random_grid(512, 512, 16, 2), 1.0, 512, 2),
         k3_case("random 13x37x16, rr=1, eps=0", random_grid(13, 37, 16, 1),
                 0.0, 13, 1),
-        k3_case(f"the N=1M tree grid {res}x{res}x{cap}, rr={rr}",
-                buckets.grid, eps, res, rr),
     ]
+    for rows_, width, slots, r, eps_sq, mode in (
+            (12, 37, 16, 0, 1.0, "occupied"), (64, 50, 16, 2, 1.0, "occupied"),
+            (20, 29, 7, 4, 1.0, "occupied"), (16, 40, 16, 2, 1.0, "full"),
+            (9, 23, 5, 4, 1.0, "full"), (16, 33, 16, 2, 0.0, "coincident")):
+        grid, counts = occupied_grid(rows_, width, slots, r, 2, mode)
+        k3_errs.append(k3_case(
+            f"{mode} {rows_}x{width}x{slots}, rr={r}, eps^2={eps_sq}", grid,
+            eps_sq, rows_, r, counts))
+    k3_errs.append(k3_case(f"the N=1M tree grid {res}x{res}x{cap}, rr={rr}",
+                           buckets.grid, eps, res, rr, k3_counts))
 
     def rect_case(name, fn, tgt, src, src_m):
         got = fn(tgt, src, src_m)
@@ -808,22 +961,26 @@ def main() -> None:
             f"N=1M force backend resolved to {tsim.config.force_backend}")
     tsim.run(2)  # warm-up
     torch.cuda.synchronize()
-    allpairs_accelerations.launches = 0
-    allpairs_accelerations_wide.launches = 0
-    bucket_stencil.launches = 0
+    others = (allpairs_collision_deltas, rect_pair_deltas,
+              block_collision_deltas, bucket_stencil3)
+    for c in (allpairs_accelerations, allpairs_accelerations_wide,
+              bucket_stencil) + others:
+        c.launches = 0
     start.record()
     tsim.run(20)
     end.record()
     torch.cuda.synchronize()
     tree_launches = {"K1": allpairs_accelerations.launches,
                      "K3": bucket_stencil.launches,
-                     "K4": allpairs_accelerations_wide.launches}
+                     "K4": allpairs_accelerations_wide.launches,
+                     "other": sum(c.launches for c in others)}
     tree_steps_per_s = 20 / (start.elapsed_time(end) / 1e3)
     say("tree", f"launches during run(20) at N={n1m}: {tree_launches}; "
         f"{tree_steps_per_s:.3f} steps/s (CUDA events, after 2 warm-up "
         f"steps)")
-    require(tree_launches == {"K1": 20, "K3": 20, "K4": 20},
-            f"tree kernel launches {tree_launches}, expected 20 each")
+    require(tree_launches == {"K1": 20, "K3": 20, "K4": 20, "other": 0},
+            f"tree kernel launches {tree_launches}, expected K1, K3 and K4 "
+            f"20 each")
     st = tsim.state
     for name in ("pos", "vel", "acc"):
         require(bool(torch.isfinite(getattr(st, name)).all()),
@@ -1260,26 +1417,17 @@ def main() -> None:
     # -- 9. tree3d -----------------------------------------------------------
     t_phase9 = time.perf_counter()
 
-    def k7_case(name, grid, eps_sq, rows, r):
-        got = bucket_stencil3(*grid, rr=r, eps_sq=eps_sq, center_rows=rows)
-        ref = bucket_stencil3_plain(*grid, r, eps_sq, rows)
-        torch.cuda.synchronize()
-        require(all(bool(torch.isfinite(a).all()) for a in got),
-                f"K7 {name}: non-finite")
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        scale = max(float(b.abs().max()) for b in ref)
-        ok = err <= 1e-5 * scale
-        say("tree3d", f"K7 {name}: max_abs_err={err:.3e} max|a|={scale:.3e} "
-            f"tol={1e-5 * scale:.3e} {'ok' if ok else 'FAIL'}")
-        require(ok, f"K7 {name} disagrees with its plain version")
-        return err
-
     def random_grid3(rows, width, slots, r, fill):
         shape = (rows + 2 * r, width, width, slots)
         m = uniform(shape, 0.0, 2.0)
         m = torch.where(torch.rand(shape, generator=gen, device=dev) < fill,
                         m, 0.0)
         return tuple(uniform(shape, -5.0, 5.0) for _ in range(3)) + (m,)
+
+    def k7_case(name, grid, eps_sq, rows, r, counts=None):
+        if counts is None:
+            counts = random_counts(grid)
+        return near_case("tree3d", name, grid, counts, eps_sq, rows, r)
 
     k7_errs = [
         k7_case(f"random 30%-filled 64^3 x 16, rr={r}",
@@ -1295,12 +1443,22 @@ def main() -> None:
         k7_case("random 9x11x11 x 8, rr=4, eps=0",
                 random_grid3(9, 11, 8, 4, 0.3), 0.0, 9, 4),
     ]
+    for rows_, width, slots, r, eps_sq, mode in (
+            (8, 13, 16, 1, 1.0, "occupied"), (6, 11, 16, 2, 1.0, "occupied"),
+            (5, 9, 10, 3, 1.0, "occupied"), (4, 7, 16, 4, 1.0, "occupied"),
+            (12, 12, 16, 1, 1.0, "full"), (4, 6, 16, 4, 1.0, "full"),
+            (9, 10, 16, 1, 0.0, "coincident")):
+        grid, counts = occupied_grid(rows_, width, slots, r, 3, mode)
+        k7_errs.append(k7_case(
+            f"{mode} {rows_}x{width}x{width} x {slots}, rr={r}, "
+            f"eps^2={eps_sq}", grid, eps_sq, rows_, r, counts))
 
     # The JAX package's 3D headline input (diagnostics/profiling.py:99-101).
     n3 = 1 << 20
     cfg3 = SimConfig(n=n3, dim=3, enable_collisions=False)
-    pos3 = uniform((n3, 3), -30000.0, 30000.0)
-    mass3 = uniform((n3,), 0.1, 10.0)
+    cube_gen = own_generator(9)
+    pos3 = uniform((n3, 3), -30000.0, 30000.0, cube_gen)
+    mass3 = uniform((n3,), 0.1, 10.0, cube_gen)
     levels3 = bh3._resolve_levels3(cfg3, n3)
     radius3 = bh3._resolve_radius3(cfg3)
     rr3, res3 = radius3 - 1, 1 << levels3
@@ -1337,9 +1495,10 @@ def main() -> None:
     flat_nf3 = bh._outlier_flat_ids(flat3, ext3["is_out"], res3 ** 3)
     b3 = bh._bucket_grid(pos3, ext3["tree_mass"], ci3, flat_nf3, res3, cap,
                          rr3)
+    k7_counts = b3.counts
     k7_errs.append(k7_case(
         f"the N=1M cube's grid {res3}^3 x {cap}, rr={rr3}", b3.grid, eps,
-        res3, rr3))
+        res3, rr3, k7_counts))
 
     a3_kern = bh3.bh3_accelerations(pos3, mass3, cfg3)
     a3_plain, tree3_plain_ms = timed(lambda: bh3.bh3_accelerations(
@@ -1405,8 +1564,10 @@ def main() -> None:
     stages3["sort and bucket scatter"] = time_ms(lambda: bh._bucket_grid(
         pos3, ext3["tree_mass"], ci3, flat_nf3, res3, cap, rr3), 10)
     stages3["K7 near field"] = time_ms(lambda: bucket_stencil3(
-        *b3.grid, rr=rr3, eps_sq=eps, center_rows=res3), 20)
-    nacc3 = bucket_stencil3(*b3.grid, rr=rr3, eps_sq=eps, center_rows=res3)
+        *b3.grid, counts=k7_counts, rr=rr3, eps_sq=eps, center_rows=res3),
+        20)
+    nacc3 = bucket_stencil3(*b3.grid, counts=k7_counts, rr=rr3, eps_sq=eps,
+                            center_rows=res3)
     stages3["bucket gather"] = time_ms(
         lambda: bh._bucket_gather(b3, nacc3, res3, cap), 10)
     acc_s3 = bh._bucket_gather(b3, nacc3, res3, cap)
@@ -1444,15 +1605,10 @@ def main() -> None:
     def pair_bound3(pairs, nbytes):
         return bound(nbytes, 19.0 * pairs, pairs)
 
-    occ3 = F.pad((b3.grid[3] != 0).sum(-1).to(torch.float64),
-                 (rr3, rr3, rr3, rr3))
-    box3 = sum(occ3[ox:ox + res3, oy:oy + res3, oz:oz + res3]
-               for ox in range(2 * rr3 + 1) for oy in range(2 * rr3 + 1)
-               for oz in range(2 * rr3 + 1))
-    k7_pairs = float((occ3[rr3:rr3 + res3, rr3:rr3 + res3, rr3:rr3 + res3]
-                      * box3).sum())
-    k7_evaluated = float(cap * box3.sum())
-    k7_bytes = 4.0 * (4 * b3.grid[0].numel() + 3 * res3 ** 3 * cap)
+    k7_pairs, k7_issued, k7_evaluated = near_pairs(k7_counts, res3, rr3,
+                                                   cap)
+    k7_bytes = 4.0 * (4 * float(k7_counts.sum()) + k7_counts.numel()
+                      + 3 * res3 ** 3 * cap)
     k7_plain_ms = time_ms(lambda: bucket_stencil3_plain(
         *b3.grid, rr3, eps, res3), 2)
     tree3_k = {
@@ -1471,15 +1627,20 @@ def main() -> None:
             *pair_bound3(float(n3) * opos3.shape[0],
                          4.0 * (4 * n3 + 6 * opos3.shape[0]))),
     }
-    say("timings", f"K7 N=1M grid: {k7_pairs:.4e} occupied pairs (the "
-        f"bound's work), {k7_evaluated:.4e} evaluated (every target slot x "
-        f"occupied sources), "
+    say("timings", f"K7 N=1M grid: {k7_pairs:.4e} occupied pairs needed "
+        f"(the bound's work; what the kernel's active lanes evaluate), "
+        f"{k7_issued:.4e} lane-pairs issued with each warp's idle lanes "
+        f"({k7_issued / k7_pairs:.3f}x; a model estimate from the counts "
+        f"and the library's tile, not measured), {k7_evaluated:.4e} for "
+        f"every target slot x occupied sources (a thread-a-slot kernel's "
+        f"work), "
         f"{float(res3 ** 3 * cap * cap * (2 * rr3 + 1) ** 3):.4e} in the "
-        f"full K x K stencil")
+        f"full K x K stencil; K7 "
+        f"{k7_pairs / stages3['K7 near field'] * 1e3:.4e} needed pairs/s")
     for name, (ms, plain_ms_, bnd, by) in tree3_k.items():
         say("timings", f"{name} at the octree's shape: kernel {ms:.4f} ms, "
             f"plain {plain_ms_:.4f} ms, bound {bnd:.4f} ms ({by})")
-    del b3, nacc3, acc_s3, local3, terms3, grids3
+    del b3, nacc3, acc_s3, local3, terms3, grids3, k7_counts
 
     # The octree's main path: Simulation under 'auto' at N = 1M in 3D.
     sim3 = Simulation(cfg3, state=ParticleState.create(

@@ -175,9 +175,10 @@ def simulate(
     config: SimConfig,
     num_steps: int,
 ) -> ParticleState:
-    """Functional rollout: `num_steps` steps on the state's device."""
-    config = resolve_config_for_state(state.pos, state.mass, config)
-    config = resolve_collision_phase_for_state(state, config)
+    """Functional rollout: `num_steps` steps on the state's device, as the
+    JAX package's `simulate`: it primes leapfrog and rolls out. The state
+    probes ('auto' pinned from the particles' occupancy, the capacity
+    checks) are `Simulation`'s; here each step resolves 'auto' by N."""
     if config.integrator == "leapfrog_kdk":
         state = prime_accelerations(state, config)
     return make_rollout(config, num_steps)(state)

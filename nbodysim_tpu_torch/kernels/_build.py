@@ -54,11 +54,15 @@ SIGNATURES = {
     # impulse, stream
     "nb_block_collide": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                          _f, _vp),
-    # bx, by, bm, ax, ay, center_rows, res, cap, rr, eps_sq, stream
-    "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp),
-    # bx, by, bz, bm, ax, ay, az, center_rows, res, cap, rr, eps_sq, stream
-    "nb_bucket_stencil3": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                           _f, _vp),
+    # bx, by, bm, counts, ax, ay, center_rows, res, cap, rr, eps_sq, stream
+    "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
+                          _vp),
+    # bx, by, bz, bm, counts, ax, ay, az, center_rows, res, cap, rr, eps_sq,
+    # stream
+    "nb_bucket_stencil3": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                           _i, _i, _f, _vp),
+    # dim, shape[3] (host memory)
+    "nb_nearfield_tile": (_i, _vp),
 }
 
 

@@ -21,12 +21,23 @@ it.
     rows (x-slabs). The CPU path, and the reference the kernels are held
     to on the card.
 
-Contract, 2D: bx, by, bm are [center_rows + 2rr, res, K] (K slots per cell,
-empty slots with mass 0); target cells are the rows [rr, rr + center_rows);
-the rr halo rows on each side are sources only. Returns (accx, accy),
-[center_rows, res, K] each, unscaled by G. 3D: bx, by, bz, bm are
-[center_rows + 2rr, res, res, K] with rr halo x-slabs; returns (accx, accy,
-accz), [center_rows, res, res, K] each.
+Contract, 2D: bx, by, bm are [center_rows + 2rr, res, K] (K slots per cell);
+target cells are the rows [rr, rr + center_rows); the rr halo rows on each
+side are sources only. Returns (accx, accy), [center_rows, res, K] each,
+unscaled by G. 3D: bx, by, bz, bm are [center_rows + 2rr, res, res, K] with
+rr halo x-slabs; returns (accx, accy, accz), [center_rows, res, res, K] each.
+
+Occupancy: the wrappers take `counts`, int32 of the grid's shape without its
+slot axis ([center_rows + 2rr, res(, res)], halo included): the cell's
+occupied slots, which fill from slot 0. Every slot at or above its cell's
+count must be empty (mass 0), as `physics/barneshut._bucket_grid` leaves it;
+a slot below it may hold a massless particle, and is still a target. The
+kernels compute the slots below each count and write exactly 0 at every
+slot at or above it, and take as sources only the slots below the counts.
+The plain versions ignore `counts` and compute every slot, empty ones
+included; `_bucket_gather` reads only the occupied slots, so the force path
+gets the same numbers either way. The count cannot be read off the mass
+grid: the tree zeroes the mass of heavy bodies, which keep their slot.
 """
 
 from __future__ import annotations
@@ -75,9 +86,23 @@ def bucket_stencil_plain(bx, by, bm, rr: int, eps_sq: float,
     return accx, accy
 
 
-def bucket_stencil(bx, by, bm, *, rr: int, eps_sq: float, center_rows: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_counts(counts, grid_shape, device, name: str):
+    """`counts` must be int32 [grid_shape[:-1]] on `device`."""
+    if not torch.is_tensor(counts) or counts.dtype != torch.int32:
+        raise ValueError(f"{name}: counts must be an int32 tensor")
+    if counts.device != device:
+        raise ValueError(f"{name}: counts on {counts.device}, expected "
+                         f"{device}")
+    if tuple(counts.shape) != tuple(grid_shape[:-1]):
+        raise ValueError(f"{name}: counts {tuple(counts.shape)}, expected "
+                         f"the grid's cells {tuple(grid_shape[:-1])}")
+    return counts.contiguous()
+
+
+def bucket_stencil(bx, by, bm, *, counts, rr: int, eps_sq: float,
+                   center_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Near field per slot (see module). CUDA tensor: K3; CPU: plain."""
+    counts = _check_counts(counts, bx.shape, bx.device, "K3")
     if bx.device.type == "cpu":
         return bucket_stencil_plain(bx, by, bm, rr, eps_sq, center_rows)
     if bx.device.type != "cuda":
@@ -98,8 +123,6 @@ def bucket_stencil(bx, by, bm, *, rr: int, eps_sq: float, center_rows: int
     if not (1 <= cap <= 16 and 0 <= rr <= 4):
         raise ValueError(f"K3 takes 1 <= K <= 16 slots and rr <= 4, got "
                          f"K={cap}, rr={rr}")
-    if bx.numel() >= 2 ** 31:
-        raise ValueError("K3 indexes rows with 32-bit ints: grid too large")
     accx = torch.empty((center_rows, res, cap), dtype=torch.float32,
                        device=device)
     accy = torch.empty_like(accx)
@@ -109,8 +132,9 @@ def bucket_stencil(bx, by, bm, *, rr: int, eps_sq: float, center_rows: int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.nb_bucket_stencil(
-            bx.data_ptr(), by.data_ptr(), bm.data_ptr(), accx.data_ptr(),
-            accy.data_ptr(), center_rows, res, cap, rr, float(eps_sq), stream)
+            bx.data_ptr(), by.data_ptr(), bm.data_ptr(), counts.data_ptr(),
+            accx.data_ptr(), accy.data_ptr(), center_rows, res, cap, rr,
+            float(eps_sq), stream)
     check(status, "nb_bucket_stencil")
     bucket_stencil.launches += 1
     return accx, accy
@@ -161,10 +185,11 @@ def bucket_stencil3_plain(bx, by, bz, bm, rr: int, eps_sq: float,
     return out
 
 
-def bucket_stencil3(bx, by, bz, bm, *, rr: int, eps_sq: float,
+def bucket_stencil3(bx, by, bz, bm, *, counts, rr: int, eps_sq: float,
                     center_rows: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3D near field per slot (see module). CUDA tensor: K7; CPU: plain."""
+    counts = _check_counts(counts, bx.shape, bx.device, "K7")
     if bx.device.type == "cpu":
         return bucket_stencil3_plain(bx, by, bz, bm, rr, eps_sq, center_rows)
     if bx.device.type != "cuda":
@@ -197,8 +222,8 @@ def bucket_stencil3(bx, by, bz, bm, *, rr: int, eps_sq: float,
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.nb_bucket_stencil3(
             bx.data_ptr(), by.data_ptr(), bz.data_ptr(), bm.data_ptr(),
-            accx.data_ptr(), accy.data_ptr(), accz.data_ptr(), center_rows,
-            res, cap, rr, float(eps_sq), stream)
+            counts.data_ptr(), accx.data_ptr(), accy.data_ptr(),
+            accz.data_ptr(), center_rows, res, cap, rr, float(eps_sq), stream)
     check(status, "nb_bucket_stencil3")
     bucket_stencil3.launches += 1
     return accx, accy, accz

@@ -510,21 +510,20 @@ def _near_masked_blocked(tgt_pos, tgt_cell, src_pos, src_mass, src_cell,
     return acc
 
 
-def _bucket_stencil_dispatch(grid, rr, eps_sq, center_rows,
+def _bucket_stencil_dispatch(b: _Buckets, rr, eps_sq, center_rows,
                              use_kernels: bool):
-    """K3 on a 2D grid (bx, by, bm), K7 on a 3D one (bx, by, bz, bm) -- the
-    wrappers launch the kernel on a CUDA tensor and run the plain version
-    on a CPU one -- or, with use_kernels=False, the plain version
-    anywhere."""
-    if len(grid) == 3:
-        if use_kernels:
-            return bucket_stencil(*grid, rr=rr, eps_sq=eps_sq,
-                                  center_rows=center_rows)
-        return bucket_stencil_plain(*grid, rr, eps_sq, center_rows)
-    if use_kernels:
-        return bucket_stencil3(*grid, rr=rr, eps_sq=eps_sq,
-                               center_rows=center_rows)
-    return bucket_stencil3_plain(*grid, rr, eps_sq, center_rows)
+    """K3 on a 2D bucket grid (bx, by, bm), K7 on a 3D one (bx, by, bz,
+    bm), given the cells' occupied-slot counts -- the wrappers launch the
+    kernel on a CUDA tensor and run the plain version on a CPU one -- or,
+    with use_kernels=False, the plain version anywhere."""
+    grid = b.grid
+    dim = len(grid) - 1
+    if not use_kernels:
+        plain = bucket_stencil_plain if dim == 2 else bucket_stencil3_plain
+        return plain(*grid, rr, eps_sq, center_rows)
+    kernel = bucket_stencil if dim == 2 else bucket_stencil3
+    return kernel(*grid, counts=b.counts, rr=rr, eps_sq=eps_sq,
+                  center_rows=center_rows)
 
 
 class _Buckets(NamedTuple):
@@ -540,6 +539,9 @@ class _Buckets(NamedTuple):
     grid: Tuple[torch.Tensor, ...]
     # (b_x, b_y[, b_z], b_m), [res + 2rr, res(, res), cap] each: rr zero
     # halo rows (x-slabs) per side
+    counts: torch.Tensor
+    # [res + 2rr, res(, res)] int32, the grid's cells with its halo:
+    # min(in-grid particles, cap), 0 in the halo
 
 
 def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
@@ -548,7 +550,9 @@ def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
     `cap` of each cell into the bucket grid, in 2D or 3D (D = pos.shape[1]
     grid axes). Particles with a flat id >= res^D (the extracted outliers)
     and overflow go to one extra dump entry that is cut off (JAX:
-    mode="drop")."""
+    mode="drop"). `counts` holds each cell's occupied slots, massless
+    particles (heavy bodies, zeroed in `mass`) included, in the grid's
+    cell layout with its halo: what K3 and K7 take."""
     n, dim = pos.shape
     device = pos.device
     # Stable, as jnp.argsort is: which particles land in the in-cap slots
@@ -563,8 +567,8 @@ def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
 
     n_cells = res ** dim
     size = n_cells * cap
-    dest = torch.where(in_cap & (flat_s < n_cells), flat_s * cap + slot,
-                       size)
+    live = in_cap & (flat_s < n_cells)
+    dest = torch.where(live, flat_s * cap + slot, size)
     halo = (0, 0) * dim + (rr, rr)     # zero x-slabs on both sides
 
     def scat(v):
@@ -574,8 +578,12 @@ def _bucket_grid(pos, mass, ci, flat, res: int, cap: int,
 
     grid = tuple(scat(pos_s[:, a]) for a in range(dim)) + (
         scat(torch.where(in_cap, mass_s, 0.0)),)
+    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=device)
+    counts.index_add_(0, torch.where(live, flat_s, n_cells),
+                      torch.ones(n, dtype=torch.int32, device=device))
+    counts = F.pad(counts[:n_cells].reshape((res,) * dim), halo[2:])
     return _Buckets(order, flat_s, slot, in_cap, pos_s, mass_s, ci[order],
-                    (slot >= cap).sum(), grid)
+                    (slot >= cap).sum(), grid, counts)
 
 
 def _bucket_gather(b: _Buckets, acc, res: int, cap: int):
@@ -633,7 +641,7 @@ def _near_field_buckets(pos, mass, ci, flat, levels: int, eps_sq, g_const,
     res = 1 << levels
     rr = radius - 1
     b = _bucket_grid(pos, mass, ci, flat, res, cap, rr)
-    acc = _bucket_stencil_dispatch(b.grid, rr, eps_sq, res, use_kernels)
+    acc = _bucket_stencil_dispatch(b, rr, eps_sq, res, use_kernels)
     acc_s = _overflow_residual(b, _bucket_gather(b, acc, res, cap), eps_sq,
                                rr)
     acc = torch.empty_like(acc_s)

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's K1/K4 (all-pairs gravity) and K2/K5 (collision test)
-kernels, and the two paths they carry, for one or more checkouts of the
-repository on one GPU, in the order given.
+"""Time the port's K1/K4 (all-pairs gravity), K2/K5 (collision test) and
+K3/K7 (the trees' near field) kernels, and the paths they carry, for one or
+more checkouts of the repository on one GPU, in the order given.
 
     python scripts/torch_kernel_ab.py PARENT CHANGE CHANGE PARENT
 
 Each ROOT is a directory holding `nbodysim_tpu_torch/`; each is timed in a
 process of its own (the package builds its kernels into ROOT/build), on the
-same inputs made from seed 0 on the card. Interleave the roots (A B B A) to
+same inputs made on the card (seed 0; the trees' N=1M square and cube from
+seeds 6 and 9, as chip_smoke.py makes them). Interleave the roots (A B B A) to
 see the spread between runs of one version. Per root it prints one JSON
 line of times in ms (CUDA events, after warm-up): K1 at N=25k and 65,536 on
 the disc and uniform input, on the N=1M galaxy merger (1M x 1M), the 2D and
-3D tree couplings at N=1M (K1 outliers <- all, K4 bulk <- outliers), K2 on
+3D tree couplings at N=1M (K1 outliers <- all, K4 bulk <- outliers), K3
+and K7 on the N=1M trees' bucket grids (512^2 x 16, rr=2 and 64^3 x 16,
+rr=1) with the grid's bucket overflow, one 2D and one 3D tree eval at
+N=1M with its device busy time
+(torch.profiler over 3 evals, device rows merged), K2 on
 the N=25k and N=65,536 discs, K5 at the merger's big-body shape [64 x 1M]
 and its full-cap residual shape [1M x 16384], and steps/s of the N=25k disc
 (run(200)) and of the N=1M merger (run(2)), with the N=25k step's device
@@ -43,7 +48,9 @@ def _worker(root: str) -> dict:
     from nbodysim_tpu_torch.kernels import _build
     from nbodysim_tpu_torch.kernels import allpairs as kap
     from nbodysim_tpu_torch.kernels import collide as kco
+    from nbodysim_tpu_torch.kernels import nearfield as knf
     from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
     from nbodysim_tpu_torch.physics import collisions as coll
     from nbodysim_tpu_torch.scenes import init_scene, uniform_disc
 
@@ -56,8 +63,8 @@ def _worker(root: str) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    def uniform(shape, lo, hi, g=gen):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
     def time_ms(fn, iters, warmup=2):
         for _ in range(warmup):
@@ -73,6 +80,9 @@ def _worker(root: str) -> dict:
         return a.elapsed_time(b) / iters
 
     has_k = "k" in inspect.signature(kap._launch).parameters
+    # Older near-field wrappers take no occupancy (`counts`).
+    has_counts = "counts" in inspect.signature(
+        knf.bucket_stencil).parameters
     out = {"root": root, "build_s": build_s}
 
     def k1(name, tgt, mass, iters, **kw):
@@ -101,8 +111,12 @@ def _worker(root: str) -> dict:
 
     eps = nt.SimConfig().eps_sq
     for dim in (2, 3):
-        upos = uniform((1 << 20, dim), -30000.0, 30000.0)
-        umass = uniform((1 << 20,), 0.1, 10.0)
+        # chip_smoke.py's N=1M square and cube: each from a generator of its
+        # own, seeded as there.
+        g = torch.Generator(device=dev)
+        g.manual_seed(6 if dim == 2 else 9)
+        upos = uniform((1 << 20, dim), -30000.0, 30000.0, g)
+        umass = uniform((1 << 20,), 0.1, 10.0, g)
         ext = bh._extract_heavy_outliers(upos, umass)
         opos = upos[ext["out_i"]]
         k1_src_m = torch.where(ext["is_heavy"], 0.0, umass)
@@ -112,6 +126,35 @@ def _worker(root: str) -> dict:
            eps_sq=eps, src_pos=upos, src_mass=k1_src_m)
         k4(f"K4 {dim}D bulk <- outliers [1M x 4096]", upos, opos, k4_src_m,
            20, eps)
+        # The tree's bucket grid, as its eval builds it, and the eval.
+        tcfg = nt.SimConfig(n=1 << 20, dim=dim, enable_collisions=False)
+        if dim == 2:
+            levels, radius = (bh._resolve_levels(tcfg, 1 << 20),
+                              bh._resolve_radius(tcfg))
+            build, kernel, name = bh._build_pyramid, knf.bucket_stencil, "K3"
+        else:
+            levels, radius = (bh3._resolve_levels3(tcfg, 1 << 20),
+                              bh3._resolve_radius3(tcfg))
+            build, kernel, name = (bh3._build_pyramid3, knf.bucket_stencil3,
+                                   "K7")
+        rr, res = radius - 1, 1 << levels
+        _, _, _, ci, flat = build(ext["bulk_pos"], ext["tree_mass"], levels)
+        b = bh._bucket_grid(upos, ext["tree_mass"], ci, bh._outlier_flat_ids(
+            flat, ext["is_out"], res ** dim), res, bh.NEAR_CAP, rr)
+        kw = dict(rr=rr, eps_sq=eps, center_rows=res)
+        if has_counts:
+            kw["counts"] = b.counts
+        out[f"{name} N=1M tree grid {res}^{dim} x 16, rr={rr}"] = time_ms(
+            lambda: kernel(*b.grid, **kw), 50)
+        out[f"{dim}D bucket overflow"] = int(b.overflow)
+        del b, ci, flat
+
+        def tree_eval():
+            return bh.bh_accelerations(upos, umass, tcfg)
+
+        out[f"{dim}D tree eval N=1M"] = time_ms(tree_eval, 5)
+        out[f"{dim}D tree eval device busy"] = _device_busy(
+            lambda: [tree_eval() for _ in range(3)], 3, torch)[1]
         del upos, umass, ext
 
     mcfg = nt.SimConfig(n=1 << 20, dt=0.05, integrator="leapfrog_kdk",
@@ -168,7 +211,9 @@ def _worker(root: str) -> dict:
         torch.cuda.synchronize()
         out[name] = steps / (start.elapsed_time(end) / 1e3)
         if scene == "uniform_disc":
-            ops, busy_ms = _step_profile(sim, torch)
+            # Over 20 steps; the idle share holds the busy time against the
+            # unprofiled step time, since the profiler slows the host.
+            ops, busy_ms = _device_busy(lambda: sim.run(20), 20, torch)
             out["N=25k device ops per step"] = ops
             out["N=25k device busy ms per step"] = busy_ms
             out["N=25k device idle share"] = 1.0 - busy_ms * out[name] / 1e3
@@ -176,16 +221,15 @@ def _worker(root: str) -> dict:
     return out
 
 
-def _step_profile(sim, torch, steps: int = 20):
-    """(device operations, device busy ms) per step over `steps` steps:
-    torch.profiler's device rows, their intervals merged. The idle share
-    holds the busy time against the unprofiled step time, since the
-    profiler slows the host."""
+def _device_busy(fn, count: int, torch):
+    """(device rows, device busy ms) per unit over one torch.profiler window
+    that runs `fn` once, `count` units' worth: the device rows' intervals
+    merged, so overlapping rows count once."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        sim.run(steps)
+        fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -195,7 +239,7 @@ def _step_profile(sim, torch, steps: int = 20):
         if b > last:
             busy += b - max(a, last)
             last = b
-    return len(spans) / steps, busy / steps / 1e3
+    return len(spans) / count, busy / count / 1e3
 
 
 def main() -> None:

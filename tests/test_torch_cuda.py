@@ -120,9 +120,11 @@ def test_launch_counters_count_kernel_launches_only(dev):
     assert allpairs_collision_deltas.launches == k2 + 1
     k3, k4 = bucket_stencil.launches, allpairs_accelerations_wide.launches
     grid = torch.rand(8, 8, 4, device=dev)
-    bucket_stencil(grid, grid, grid, rr=2, eps_sq=1.0, center_rows=4)
-    bucket_stencil(grid.cpu(), grid.cpu(), grid.cpu(), rr=2, eps_sq=1.0,
+    full = torch.full((8, 8), 4, dtype=torch.int32, device=dev)
+    bucket_stencil(grid, grid, grid, counts=full, rr=2, eps_sq=1.0,
                    center_rows=4)
+    bucket_stencil(grid.cpu(), grid.cpu(), grid.cpu(), counts=full.cpu(),
+                   rr=2, eps_sq=1.0, center_rows=4)
     allpairs_accelerations_wide(pos, pos[:7], mass[:7], eps_sq=1.0)
     assert bucket_stencil.launches == k3 + 1
     assert allpairs_accelerations_wide.launches == k4 + 1
@@ -136,9 +138,11 @@ def test_launch_counters_count_kernel_launches_only(dev):
     assert rect_pair_deltas.launches == k5 + 1
     k7 = bucket_stencil3.launches
     grid3 = torch.rand(8, 4, 4, 4, device=dev)
-    bucket_stencil3(grid3, grid3, grid3, grid3, rr=2, eps_sq=1.0,
-                    center_rows=4)
-    bucket_stencil3(*(grid3.cpu(),) * 4, rr=2, eps_sq=1.0, center_rows=4)
+    full3 = torch.full((8, 4, 4), 4, dtype=torch.int32, device=dev)
+    bucket_stencil3(grid3, grid3, grid3, grid3, counts=full3, rr=2,
+                    eps_sq=1.0, center_rows=4)
+    bucket_stencil3(*(grid3.cpu(),) * 4, counts=full3.cpu(), rr=2,
+                    eps_sq=1.0, center_rows=4)
     assert bucket_stencil3.launches == k7 + 1
 
 
@@ -155,16 +159,31 @@ def test_wrappers_reject_malformed_input(dev):
                                   torch.rand(10, device=dev),
                                   torch.rand(10, device=dev), impulse=1.5)
     grid = torch.rand(8, 8, 4, device=dev)
+    full = torch.full((8, 8), 4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):   # rows != center_rows + 2rr
-        bucket_stencil(grid, grid, grid, rr=2, eps_sq=1.0, center_rows=5)
+        bucket_stencil(grid, grid, grid, counts=full, rr=2, eps_sq=1.0,
+                       center_rows=5)
     with pytest.raises(ValueError):   # more than 16 slots
         big = torch.rand(8, 8, 17, device=dev)
-        bucket_stencil(big, big, big, rr=2, eps_sq=1.0, center_rows=4)
+        bucket_stencil(big, big, big, counts=full, rr=2, eps_sq=1.0,
+                       center_rows=4)
+    with pytest.raises(ValueError):   # counts on the host
+        bucket_stencil(grid, grid, grid, counts=full.cpu(), rr=2,
+                       eps_sq=1.0, center_rows=4)
+    with pytest.raises(ValueError):   # counts not int32
+        bucket_stencil(grid, grid, grid, counts=full.long(), rr=2,
+                       eps_sq=1.0, center_rows=4)
     grid3 = torch.rand(8, 4, 4, 4, device=dev)
+    full3 = torch.full((8, 4, 4), 4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):   # x-slabs != center_rows + 2rr
-        bucket_stencil3(*(grid3,) * 4, rr=2, eps_sq=1.0, center_rows=5)
+        bucket_stencil3(*(grid3,) * 4, counts=full3, rr=2, eps_sq=1.0,
+                        center_rows=5)
     with pytest.raises(ValueError):   # halo past the largest radius
-        bucket_stencil3(*(grid3,) * 4, rr=5, eps_sq=1.0, center_rows=-2)
+        bucket_stencil3(*(grid3,) * 4, counts=full3, rr=5, eps_sq=1.0,
+                        center_rows=-2)
+    with pytest.raises(ValueError):   # counts of another shape
+        bucket_stencil3(*(grid3,) * 4, counts=full3[:7], rr=2, eps_sq=1.0,
+                        center_rows=4)
 
 
 def test_main_path_runs_through_the_kernels(dev):
@@ -197,13 +216,132 @@ def test_k3_matches_plain(dev, rows, res, cap, rr, eps_sq):
     bm = _uniform(g, shape, 0.0, 2.0)
     bm = torch.where(torch.rand(shape, generator=g, device=dev) < 0.4, bm,
                      0.0)
-    got = bucket_stencil(bx, by, bm, rr=rr, eps_sq=eps_sq, center_rows=rows)
+    full = torch.full(shape[:-1], cap, dtype=torch.int32, device=dev)
+    got = bucket_stencil(bx, by, bm, counts=full, rr=rr, eps_sq=eps_sq,
+                         center_rows=rows)
     ref = bucket_stencil_plain(bx, by, bm, rr, eps_sq, rows)
     torch.cuda.synchronize()
     scale = max(float(r.abs().max()) for r in ref)
     for a, r in zip(got, ref):
         assert bool(torch.isfinite(a).all())
         assert float((a - r).abs().max()) <= 1e-5 * scale
+
+
+def _occupied_grid(g, rows, res, cap, rr, dim, mode):
+    """A bucket grid as the force path leaves it: a count per cell (halo
+    slabs included), the slots below it filled, the slots above empty.
+    'random': counts uniform in 0..cap, and one cell in 8 holds a massless
+    particle in its last occupied slot (a heavy body the tree zeroed);
+    'full': every slot of every cell occupied; 'coincident': 'random' with
+    slot 1 put onto slot 0 wherever a cell holds both; 'far': 'random'
+    shifted to 5e4 from the origin (the near field's differences lose the
+    same bits in the kernel and the plain version)."""
+    dev = g.device
+    cells = (rows + 2 * rr,) + (res,) * (dim - 1)
+    if mode == "full":
+        counts = torch.full(cells, cap, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.randint(0, cap + 1, cells, generator=g, device=dev,
+                               dtype=torch.int32)
+    occ = torch.arange(cap, device=dev) < counts[..., None]
+    shape = cells + (cap,)
+    shift = 5e4 if mode == "far" else 0.0
+    pos = [torch.where(occ, shift + _uniform(g, shape, -5.0, 5.0), 0.0)
+           for _ in range(dim)]
+    mass = torch.where(occ, _uniform(g, shape, 0.1, 2.0), 0.0)
+    massless = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if mode != "full":
+        pick = (torch.rand(cells, generator=g, device=dev) < 0.125) & (
+            counts > 0)
+        last = (counts.long() - 1).clamp_min(0)[..., None]
+        massless.scatter_(-1, last, pick[..., None])
+        mass = torch.where(massless, 0.0, mass)
+    if mode == "coincident":
+        both = counts >= 2
+        for p in pos:
+            p[..., 1] = torch.where(both, p[..., 0], p[..., 1])
+    return (*pos, mass), counts, massless
+
+
+def _hold_to_plain(got, ref, counts, rr, rows):
+    """The kernels' contract: the slots below each count within
+    1e-5 * max|a| of the plain version, exactly 0 from the count up."""
+    cap = ref[0].shape[-1]
+    occ = torch.arange(cap, device=counts.device) < \
+        counts[rr:rr + rows, ..., None]
+    scale = max(float(r[occ].abs().max()) for r in ref)
+    for a, r in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a[occ] - r[occ]).abs().max()) <= 1e-5 * scale
+        assert not bool(a[~occ].any())
+    return occ
+
+
+@pytest.mark.parametrize("dim,rows,res,cap,rr,eps_sq,mode", [
+    (2, 12, 37, 16, 0, 1.0, "random"), (2, 13, 37, 16, 1, 1.0, "random"),
+    (2, 64, 50, 16, 2, 1.0, "random"), (2, 20, 29, 7, 4, 1.0, "random"),
+    (2, 16, 40, 16, 2, 1.0, "full"), (2, 9, 23, 5, 4, 1.0, "full"),
+    (2, 16, 33, 16, 2, 0.0, "coincident"),
+    (2, 10, 19, 8, 1, 0.0, "coincident"), (2, 24, 30, 16, 2, 1.0, "far"),
+    (3, 8, 13, 16, 1, 1.0, "random"), (3, 6, 11, 16, 2, 1.0, "random"),
+    (3, 5, 9, 10, 3, 1.0, "random"), (3, 4, 7, 16, 4, 1.0, "random"),
+    (3, 12, 12, 16, 1, 1.0, "full"), (3, 4, 6, 16, 4, 1.0, "full"),
+    (3, 9, 10, 16, 1, 0.0, "coincident"),
+    (3, 5, 7, 6, 3, 0.0, "coincident"), (3, 8, 12, 16, 1, 1.0, "far")])
+def test_k3_k7_follow_the_counts(dev, dim, rows, res, cap, rr, eps_sq, mode):
+    """K3 (2D) and K7 (3D) on grids filled the force path's way: ragged
+    edges, every rr, fewer slots than 16 and 16, every cell full (staged in
+    chunks), massless targets in a cell's last occupied slot, eps = 0 with
+    coincident pairs, bodies far from the origin (the `rsqrt.approx.ftz`
+    kernels against rsqrt); the same result launch after launch."""
+    g = _gen(dev, 13 + rr)
+    grid, counts, massless = _occupied_grid(g, rows, res, cap, rr, dim, mode)
+    kernel, plain = ((bucket_stencil, bucket_stencil_plain) if dim == 2 else
+                     (bucket_stencil3, bucket_stencil3_plain))
+    got = kernel(*grid, counts=counts, rr=rr, eps_sq=eps_sq,
+                 center_rows=rows)
+    ref = plain(*grid, rr, eps_sq, rows)
+    torch.cuda.synchronize()
+    _hold_to_plain(got, ref, counts, rr, rows)
+    again = kernel(*grid, counts=counts, rr=rr, eps_sq=eps_sq,
+                   center_rows=rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if mode != "full":
+        target = massless[rr:rr + rows]
+        assert bool(target.any())
+        assert float(got[0][target].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k3_k7_on_the_trees_bucket_grid(dev, dim):
+    """The grid `_bucket_grid` builds for a uniform scene with a cluster
+    (full cells, overflow) and a heavy body (mass zeroed, slot kept): the
+    kernel against the plain version slot by slot, and the gathered near
+    field per particle."""
+    from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
+
+    g = _gen(dev, 14 + dim)
+    n, levels, rr = (1 << 16, 7, 2) if dim == 2 else (1 << 15, 5, 1)
+    pos = _uniform(g, (n, dim), -3e4, 3e4)
+    pos[:600] = _uniform(g, (600, dim), 100.0, 300.0)
+    mass = _uniform(g, (n,), 0.1, 10.0)
+    mass[-1] = 1e9
+    ext = bh._extract_heavy_outliers(pos, mass)
+    build = bh._build_pyramid if dim == 2 else bh3._build_pyramid3
+    _, _, _, ci, flat = build(ext["bulk_pos"], ext["tree_mass"], levels)
+    res = 1 << levels
+    b = bh._bucket_grid(pos, ext["tree_mass"], ci, bh._outlier_flat_ids(
+        flat, ext["is_out"], res ** dim), res, bh.NEAR_CAP, rr)
+    assert int(b.overflow) > 0 and int(b.counts.max()) == bh.NEAR_CAP
+    got = bh._bucket_stencil_dispatch(b, rr, 1.0, res, use_kernels=True)
+    ref = bh._bucket_stencil_dispatch(b, rr, 1.0, res, use_kernels=False)
+    torch.cuda.synchronize()
+    _hold_to_plain(got, ref, b.counts, rr, res)
+    a_got = bh._bucket_gather(b, got, res, bh.NEAR_CAP)
+    a_ref = bh._bucket_gather(b, ref, res, bh.NEAR_CAP)
+    assert float((a_got - a_ref).abs().max()) <= \
+        1e-5 * float(a_ref.abs().max())
 
 
 @pytest.mark.parametrize("n,s", [(65_536, 4096), (4096, 300_000)])
@@ -254,16 +392,17 @@ def test_tree_code_runs_through_the_kernels(dev):
     (64, 64, 16, 1, 1.0), (13, 18, 16, 1, 0.0), (8, 12, 16, 2, 1.0),
     (6, 9, 8, 3, 1.0), (6, 9, 16, 4, 1.0), (5, 7, 5, 4, 0.0)])
 def test_k7_matches_plain(dev, rows, res, cap, rr, eps_sq):
-    """Every halo the config allows (rr = 1..4: the source cube is staged
-    in x-plane chunks where it outgrows shared memory), ragged edges,
-    eps = 0."""
+    """Every halo the config allows (rr = 1..4), ragged edges, eps = 0, on
+    random slot masks with every slot counted as occupied."""
     g = _gen(dev, 11)
     shape = (rows + 2 * rr, res, res, cap)
     grid = [_uniform(g, shape, -5.0, 5.0) for _ in range(3)]
     bm = _uniform(g, shape, 0.0, 2.0)
     grid.append(torch.where(torch.rand(shape, generator=g, device=dev) < 0.3,
                             bm, 0.0))
-    got = bucket_stencil3(*grid, rr=rr, eps_sq=eps_sq, center_rows=rows)
+    full = torch.full(shape[:-1], cap, dtype=torch.int32, device=dev)
+    got = bucket_stencil3(*grid, counts=full, rr=rr, eps_sq=eps_sq,
+                          center_rows=rows)
     ref = bucket_stencil3_plain(*grid, rr, eps_sq, rows)
     torch.cuda.synchronize()
     scale = max(float(r.abs().max()) for r in ref)

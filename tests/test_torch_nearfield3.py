@@ -10,6 +10,7 @@ another order differ by far less.
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 from nbodysim_tpu.kernels.nearfield import (
@@ -33,8 +34,11 @@ def _grid3(rows, res, cap, rr, seed, fill=0.4):
 
 def _port(grid, rr, eps_sq, rows):
     plain = bucket_stencil3_plain(*(as_t(a) for a in grid), rr, eps_sq, rows)
-    wrapped = bucket_stencil3(*(as_t(a) for a in grid), rr=rr, eps_sq=eps_sq,
-                              center_rows=rows)
+    # Random slot masks: every slot counts as occupied.
+    counts = torch.full(grid[0].shape[:-1], grid[0].shape[-1],
+                        dtype=torch.int32)
+    wrapped = bucket_stencil3(*(as_t(a) for a in grid), counts=counts, rr=rr,
+                              eps_sq=eps_sq, center_rows=rows)
     for p, w in zip(plain, wrapped):   # CPU tensor: the plain path
         np.testing.assert_array_equal(as_np(w), as_np(p))
     return tuple(as_np(a) for a in plain)

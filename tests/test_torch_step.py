@@ -93,6 +93,42 @@ def test_simulation_run_matches_jax(integrator):
     np.testing.assert_array_equal(as_np(out.pos), as_np(sim.state.pos))
 
 
+def test_simulate_leaves_the_state_probes_to_simulation(monkeypatch):
+    """The JAX package's `simulate` primes leapfrog and rolls out; it never
+    probes the state. Neither does the port's: with both probes made to
+    raise, `simulate` still runs (and matches the rollout), while
+    `Simulation` still probes."""
+    from nbodysim_tpu_torch import api
+
+    def probe(*args, **kwargs):
+        raise AssertionError("the state was probed")
+
+    monkeypatch.setattr(api, "resolve_config_for_state", probe)
+    monkeypatch.setattr(api, "resolve_collision_phase_for_state", probe)
+    tcfg = nt.SimConfig(n=512, integrator="leapfrog_kdk")
+    state = to_port(nb.init_scene("uniform_disc", nb.SimConfig(n=512)))
+    out = nt.simulate(state, tcfg, 3)
+    ref = make_rollout(tcfg, 3)(prime_accelerations(state, tcfg))
+    np.testing.assert_array_equal(as_np(out.pos), as_np(ref.pos))
+    with pytest.raises(AssertionError, match="probed"):
+        nt.Simulation(tcfg, state=state, device="cpu")
+
+
+def test_simulate_matches_jax_with_auto_fields_unpinned():
+    """`simulate` on the tree with bh_nf_sparse = -1 left unpinned, as the
+    JAX package's `simulate` takes it (its force path reads -1 as off
+    without the deep chain); leapfrog, collisions on."""
+    kw = dict(n=1024, force_backend="bh", integrator="leapfrog_kdk")
+    jcfg, tcfg = nb.SimConfig(**kw), nt.SimConfig(**kw)
+    assert jcfg.bh_nf_sparse == tcfg.bh_nf_sparse == -1
+    state = nb.init_scene("uniform_disc", jcfg)
+    ref = nb.simulate(state, jcfg, 4)
+    out = nt.simulate(to_port(state), tcfg, 4)
+    assert int(out.frame) == int(ref.frame) == 4
+    _close(out.pos, ref.pos, 1e-4, "pos")
+    _close(out.vel, ref.vel, 1e-4, "vel")
+
+
 def test_set_dt_and_clamp_dt():
     sim = nt.Simulation(nt.SimConfig(n=64), device=CPU)
     assert sim.dt == 0.01
