@@ -53,8 +53,11 @@ Phases, each printing its own lines:
                 [1M x 64] (with smalls moved inside the nuclei, so pairs
                 fire) and at the full-cap residual shape [1M x 16384]; K6
                 and the whole block pass through the kernels against the
-                plain route on 2D and 3D blobs with uncovered blocks and on
-                the N=1M galaxy merger (1e-5 * max(max|v|, 10), momentum);
+                plain route on 2D and 3D blobs with uncovered blocks, on
+                the N=1M galaxy merger and on the 3D N=1M galaxy merger under
+                'auto' (1e-5 * max(max|v|, 10), momentum), with K6's time,
+                bound, needed pairs against the rows its counting launch
+                measures walked, and the 3D pass's launches;
                 K1 on the merger's N=1M state against its plain version on
                 4096 rows (1e-5 * max|a|), with the SM clock and power draw
                 during the launch; the N=4M merger under 'auto'
@@ -206,31 +209,6 @@ def k5_needed_pairs(tgt, src, max_cheb, chunk=8192) -> float:
     return float(total)
 
 
-def k6_needed_pairs(s, planes) -> float:
-    """Pairs that K6's masks let through on this data (the bound's work):
-    keys, both rows `ok`, not the same row. Per ok target, the ok rows of
-    its 3^D neighbouring cells: one lex range of the sorted keys per lead
-    offset, the trailing key within +-1."""
-    import torch
-    import torch.nn.functional as F
-
-    from nbodysim_tpu_torch.kernels.collide_block import lead_offsets
-    from nbodysim_tpu_torch.physics.collisions import _lex_searchsorted
-
-    keys = s.keys
-    dim = keys.shape[0]
-    ok = planes[-1] > 0
-    cum = F.pad(torch.cumsum(ok.to(torch.int64), 0), (1, 0))
-    kt = keys[:, ok]
-    offs = torch.tensor(lead_offsets(dim), dtype=torch.int32,
-                        device=keys.device)                   # [n_off, D-1]
-    lead = [kt[a][:, None] + offs[None, :, a] for a in range(dim - 1)]
-    tail = kt[dim - 1][:, None].expand(-1, offs.shape[0])
-    lo = _lex_searchsorted(list(keys), lead + [tail - 1], False, s.n_tot)
-    hi = _lex_searchsorted(list(keys), lead + [tail + 1], True, s.n_tot)
-    return float((cum[hi.long()] - cum[lo.long()]).sum() - kt.shape[1])
-
-
 def near_pairs(counts_w, rows: int, rr: int, cap: int):
     """Pair counts of the near-field kernels (K3 in 2D, K7 in 3D) on a grid
     with occupancy `counts_w` [rows + 2rr, res(, res)] (halo included):
@@ -319,7 +297,8 @@ def main() -> None:
         allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
         rect_pair_deltas_plain)
     from nbodysim_tpu_torch.kernels.collide_block import (
-        block_collision_deltas, block_collision_deltas_plain)
+        block_collision_deltas, block_collision_deltas_plain,
+        block_collision_walks, k6_needed_pairs)
     from nbodysim_tpu_torch.kernels.nearfield import (
         bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
         bucket_stencil_plain)
@@ -1143,6 +1122,40 @@ def main() -> None:
         momentum_ok(f"block pass {name}", state.mass, state.vel, out.vel)
         return err, over
 
+    def k6_bound(planes, s_, pairs):
+        """K6's bound: the planes, keys and windows read once and the deltas
+        written once (bytes), or 7 flops a pair through its masks."""
+        dim_, n_tot_ = s_.keys.shape
+        return bound(4.0 * (n_tot_ * (2 * dim_ + 3) + n_tot_ * dim_
+                            + 2 * n_tot_ * dim_ + 2 * s_.w_lo.numel()),
+                     7.0 * pairs)
+
+    def k6_report(name, planes, s_, ms):
+        """K6's time against its bound, and what its counting launch
+        measures: the rows its threads walk (the lane-pairs issued) against
+        the pairs the masks pass, those read directly, unstaged, the same
+        with idle lanes counted to their warp's longest walk, the rows
+        staged, the pairs that overlap, and
+        its CTAs' SM cycles split between finding the runs and walking them.
+        Returns the bound."""
+        needed = k6_needed_pairs(planes, s_.keys)
+        bnd = k6_bound(planes, s_, needed)
+        w = block_collision_walks(planes, s_.keys, s_.w_lo, s_.w_hi,
+                                  t_blk=s_.t_blk, impulse=1.5)
+        cyc = w["cycles_runs"] + w["cycles_walk"]
+        say("collide", f"K6 {name}: kernel {ms:.4f} ms, bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound; "
+            f"{needed:.4e} pairs through its masks, {w['walked']:.4e} rows "
+            f"walked ({w['walked'] / max(needed, 1.0):.3f}x, measured; "
+            f"{w['direct']:.4e} of them read directly by warps with short "
+            f"runs), {w['warp_slots']:.4e} lane slots with idle lanes "
+            f"({w['warp_slots'] / max(w['walked'], 1):.3f}x the walked), "
+            f"{w['staged']:.4e} rows staged, {w['overlapping']:.4e} pairs "
+            f"overlapping (resolved); CTA cycles "
+            f"{100 * w['cycles_runs'] / max(cyc, 1):.1f}% finding runs, "
+            f"{100 * w['cycles_walk'] / max(cyc, 1):.1f}% walking them")
+        return bnd
+
     k6_errs = []
     for dim, half in ((2, 120.0), (3, 32.0)):
         n_b = 32_768
@@ -1291,12 +1304,7 @@ def main() -> None:
     for name, ms in stages4.items():
         say("collide", f"  stage {name}: {ms:.4f} ms "
             f"({100 * ms / pass4_ms:.1f}% of the pass)")
-    span4 = (s4.w_hi - s4.w_lo).clamp_min(0)
-    say("collide", f"K6 N={n4}: {k6_needed_pairs(s4, bp4.planes):.4e} pairs "
-        f"through its masks (the bound's work), "
-        f"{float(span4[s4.ok_blk].sum()) * s4.t_blk:.4e} in-span pairs "
-        f"tested, {s4.ok_blk.numel() * span4.shape[1] * (2 * s4.t_blk + 512) * s4.t_blk:.4e} "
-        f"in the TPU form's fixed windows")
+    k6_report(f"N={n4} pass", bp4.planes, s4, stages4["K6"])
     del merger4, s4, bp4, dp4, dv4, inv4
     say("collide", f"N=4M pass timed {since()}")
 
@@ -1360,21 +1368,41 @@ def main() -> None:
     k6_ms = time_ms(lambda: block_collision_deltas(
         *k6_args, t_blk=ms_.t_blk, impulse=1.5), 20)
     k6_plain_ms = plain_ms[k6_merger_name]
-    # The bound's work is the pairs K6's masks let through on this data;
-    # the in-span pairs it tests and the TPU form's windows beside it.
-    span_m = (ms_.w_hi - ms_.w_lo).clamp_min(0)
-    k6_in_span = float(span_m[ms_.ok_blk].sum()) * ms_.t_blk
-    k6_pairs = k6_needed_pairs(ms_, mbp.planes)
-    n_tot = ms_.n_tot
-    k6_bnd = bound(4.0 * (n_tot * (2 * 2 + 3) + n_tot * 2 + 2 * n_tot * 2
-                          + 2 * span_m.numel()), 7.0 * k6_pairs)
-    say("collide", f"K6 merger N={n_m}: kernel {k6_ms:.4f} ms, plain "
-        f"{k6_plain_ms:.4f} ms, {k6_pairs:.4e} pairs through its masks (the "
-        f"bound's work), {k6_in_span:.4e} in-span pairs tested "
-        f"({k6_in_span / k6_ms * 1e3:.4e} pairs/s), "
-        f"{ms_.ok_blk.numel() * span_m.shape[1] * (2 * ms_.t_blk + 512) * ms_.t_blk:.4e}"
-        f" in the TPU form's windows, bound {k6_bnd[0]:.4f} ms "
-        f"({k6_bnd[1]})")
+    say("collide", f"K6 merger N={n_m}: plain {k6_plain_ms:.4f} ms")
+    k6_bnd = k6_report(f"merger N={n_m}", mbp.planes, ms_, k6_ms)
+
+    # K6 in 3D at full size: the galaxy merger with dim=3 at N = 1M, one
+    # block pass under 'auto' (the block pass at the default cell floor).
+    cfg3m = SimConfig(n=n_m, dim=3, dt=0.05, integrator="leapfrog_kdk",
+                      force_backend="cuda")
+    merger3 = init_scene("galaxy_merger", cfg3m, device=dev)
+    cfg3m = coll.resolve_collision_phase_for_state(merger3, cfg3m)
+    require(coll._broad_phase(merger3, cfg3m) == "block",
+            f"3D merger collisions resolved to "
+            f"{coll._broad_phase(merger3, cfg3m)}")
+    k6_3d_name = f"3D merger N={n_m}"
+    k6_3d_err, over3m = block_case(k6_3d_name, merger3, cfg3m)
+    for c in counted:
+        c.launches = 0
+    coll.resolve_collisions(merger3, cfg3m)
+    torch.cuda.synchronize()
+    pass3m_launches = {"K5": rect_pair_deltas.launches,
+                       "K6": block_collision_deltas.launches,
+                       "other": sum(c.launches for c in counted[:4])}
+    say("collide", f"launches during one pass of the {k6_3d_name} under "
+        f"auto: {pass3m_launches} (block overflow {over3m})")
+    require(pass3m_launches["K6"] == 1 and pass3m_launches["other"] == 0,
+            f"3D merger pass launches {pass3m_launches}: expected K6 once")
+    s3m = coll._block_structure(merger3.pos, merger3.radius, cfg3m)
+    p3m = coll._block_planes(merger3, s3m).planes
+    k6_3d_ms = time_ms(lambda: block_collision_deltas(
+        p3m, s3m.keys, s3m.w_lo, s3m.w_hi, t_blk=s3m.t_blk, impulse=1.5), 5)
+    pass3m_ms = time_ms(lambda: coll.resolve_collisions(merger3, cfg3m), 2)
+    say("collide", f"K6 {k6_3d_name}: plain {plain_ms[k6_3d_name]:.4f} ms; "
+        f"{int(s3m.ok_blk.sum())} of {s3m.ok_blk.numel()} blocks covered; "
+        f"one pass {pass3m_ms:.4f} ms")
+    k6_3d_bnd = k6_report(k6_3d_name, p3m, s3m, k6_3d_ms)
+    del merger3, s3m, p3m
 
     def k5_times(tgt, src, max_cheb, name):
         kw = dict(dim=2, impulse=1.5, max_cheb=max_cheb)
@@ -1748,6 +1776,12 @@ def main() -> None:
               "nbodysim_tpu/kernels/collide_block.py:47",
               merger_launches["K6"], max(k6_errs), k6_ms, k6_plain_ms,
               k6_bnd),
+        entry("K6 block_collision_deltas (3D merger N=1M under auto; "
+              "launches: one pass)",
+              "nbodysim_tpu_torch/csrc/collide_block.cu",
+              "nbodysim_tpu/kernels/collide_block.py:47",
+              pass3m_launches["K6"], k6_3d_err, k6_3d_ms,
+              plain_ms[k6_3d_name], k6_3d_bnd),
         entry(f"K7 bucket_stencil3 (octree N=1M, {res3}^3 x {cap}, rr={rr3})",
               "nbodysim_tpu_torch/csrc/nearfield3.cu",
               "nbodysim_tpu/kernels/nearfield.py:262", launches3["K7"],

@@ -54,6 +54,9 @@ SIGNATURES = {
     # impulse, stream
     "nb_block_collide": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                          _f, _vp),
+    # the same and counts[7] (uint64) before the stream
+    "nb_block_collide_count": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                               _i, _f, _vp, _vp),
     # bx, by, bm, counts, ax, ay, center_rows, res, cap, rr, eps_sq, stream
     "nb_bucket_stencil": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
                           _vp),

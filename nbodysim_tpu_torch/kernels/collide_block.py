@@ -24,9 +24,17 @@ blocks blk0 .. blk0 + nb_loc (a band of them, for the multi-GPU pass).
   * `block_collision_deltas_plain` — the JAX package's XLA dense stage: per
     chunk of blocks, tile-aligned window gathers of fixed length
     w_len = 2 t_blk + 512 from `start_row`, the `in_span` mask, and dense
-    masked [CB, T, W] pair blocks through `_pair_deltas`. The kernel reads
-    the windows' true spans from the sorted planes instead; for the covered
-    blocks (the only ones whose targets are ok) the two are the same pairs.
+    masked [CB, T, W] pair blocks through `_pair_deltas`. The kernel walks
+    each target's run of rows inside the windows' true spans instead; for
+    the covered blocks (the only ones whose targets are ok) the two are the
+    same pairs.
+  * `block_collision_walks` — the kernel's counting instantiation, for
+    measurement only (it adds nothing to `launches`): the rows its threads
+    walk, with and without the idle lanes of a warp, the rows it stages and
+    the rows its lanes read directly.
+  * `k6_needed_pairs` — the pairs that pass the masks on given data (the
+    work a bound counts), by lex binary search (`lex_searchsorted`, which
+    the block structure also uses for its windows).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from nbodysim_tpu_torch.kernels.collide import _pair_deltas
 
@@ -59,6 +68,47 @@ def window_start(w_lo: torch.Tensor, n_tot: int, t_blk: int) -> torch.Tensor:
     alignment, clipped so the window stays inside the array."""
     return torch.clamp((w_lo // ROW_ALIGN) * ROW_ALIGN, 0,
                        n_tot - window_length(t_blk))
+
+
+def lex_searchsorted(cols, qs, right: bool, n: int) -> torch.Tensor:
+    """Vectorised binary search over lex-sorted int32 columns `cols` ([n]
+    each) for the query tuples `qs` (arrays of any one shape): the left (or
+    right) insertion index, int32. log2(n) rounds of one small gather each;
+    the queries are per block, thousands, not millions."""
+    lo = torch.zeros(qs[0].shape, dtype=torch.int64, device=qs[0].device)
+    hi = torch.full(qs[0].shape, n, dtype=torch.int64, device=qs[0].device)
+    for _ in range(max(1, n - 1).bit_length() + 1):
+        mid = (lo + hi) >> 1
+        midc = torch.clamp(mid, max=n - 1)
+        ks = [c[midc] for c in cols]
+        # lex compare ks < qs (left) / ks <= qs (right), folded from the
+        # last key outward.
+        go = ks[-1] <= qs[-1] if right else ks[-1] < qs[-1]
+        for k, q in zip(reversed(ks[:-1]), reversed(qs[:-1])):
+            go = (k < q) | ((k == q) & go)
+        go = go & (lo < hi)
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    return lo.to(torch.int32)
+
+
+def k6_needed_pairs(planes: torch.Tensor, keys: torch.Tensor) -> float:
+    """Pairs that K6's masks let through on this data (a bound's work):
+    keys, both rows `ok`, not the same row. Per ok target, the ok rows of
+    its 3^D neighbouring cells: one lex range of the sorted keys per lead
+    offset, the trailing key within +-1. Equals a count of the masks over
+    the windows for the covered blocks of a block structure whose keys do
+    not wrap."""
+    dim, n_tot = keys.shape
+    ok = planes[-1] > 0
+    cum = F.pad(torch.cumsum(ok.to(torch.int64), 0), (1, 0))
+    kt = keys[:, ok]
+    offs = torch.tensor(lead_offsets(dim), dtype=torch.int32,
+                        device=keys.device)                   # [n_off, D-1]
+    lead = [kt[a][:, None] + offs[None, :, a] for a in range(dim - 1)]
+    tail = kt[dim - 1][:, None].expand(-1, offs.shape[0])
+    lo = lex_searchsorted(list(keys), lead + [tail - 1], False, n_tot)
+    hi = lex_searchsorted(list(keys), lead + [tail + 1], True, n_tot)
+    return float((cum[hi.long()] - cum[lo.long()]).sum() - kt.shape[1])
 
 
 def _check(planes, keys, w_lo, w_hi, t_blk, blk0, nb_loc):
@@ -155,6 +205,41 @@ def block_collision_deltas_plain(
     return torch.cat(dp_out), torch.cat(dv_out)
 
 
+def _launch(planes, keys, w_lo, w_hi, t_blk, impulse, blk0, nb_loc,
+            counts=None):
+    """Checks the operands and launches K6 (with `counts`, a [7] int64 CUDA
+    tensor, its counting instantiation); returns (dpos, dvel)."""
+    from nbodysim_tpu_torch.kernels._build import check, f32_args, library
+
+    device = planes.device
+    dim, n_tot, nb_loc = _check(planes, keys, w_lo, w_hi, t_blk, blk0,
+                                nb_loc)
+    if planes.numel() >= 2 ** 31:
+        raise ValueError("K6 indexes rows with 32-bit ints: (2D+3) * n_tot "
+                         "must be < 2^31")
+    (planes,) = f32_args(device, planes)
+    for t in (keys, w_lo, w_hi):
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+    keys, w_lo, w_hi = (t.to(torch.int32).contiguous()
+                        for t in (keys, w_lo, w_hi))
+    n_loc = nb_loc * t_blk
+    out = torch.empty((2, n_loc, dim), dtype=torch.float32, device=device)
+    lib = library()
+    args = (planes.data_ptr(), keys.data_ptr(), w_lo.data_ptr(),
+            w_hi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n_tot,
+            dim, t_blk, blk0 * t_blk, n_loc, float(impulse))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if counts is None:
+            status = lib.nb_block_collide(*args, stream)
+        else:
+            status = lib.nb_block_collide_count(*args, counts.data_ptr(),
+                                                stream)
+    check(status, "nb_block_collide")
+    return out[0], out[1]
+
+
 def block_collision_deltas(
     planes: torch.Tensor,
     keys: torch.Tensor,
@@ -175,32 +260,38 @@ def block_collision_deltas(
             blk0=blk0, nb_loc=nb_loc)
     if planes.device.type != "cuda":
         raise ValueError(f"no K6 kernel for device {planes.device}")
-    from nbodysim_tpu_torch.kernels._build import check, f32_args, library
-
-    device = planes.device
-    dim, n_tot, nb_loc = _check(planes, keys, w_lo, w_hi, t_blk, blk0,
-                                nb_loc)
-    if planes.numel() >= 2 ** 31:
-        raise ValueError("K6 indexes rows with 32-bit ints: (2D+3) * n_tot "
-                         "must be < 2^31")
-    (planes,) = f32_args(device, planes)
-    for t in (keys, w_lo, w_hi):
-        if t.device != device:
-            raise ValueError(f"tensor on {t.device}, expected {device}")
-    keys, w_lo, w_hi = (t.to(torch.int32).contiguous()
-                        for t in (keys, w_lo, w_hi))
-    n_loc = nb_loc * t_blk
-    out = torch.empty((2, n_loc, dim), dtype=torch.float32, device=device)
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.nb_block_collide(
-            planes.data_ptr(), keys.data_ptr(), w_lo.data_ptr(),
-            w_hi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n_tot,
-            dim, t_blk, blk0 * t_blk, n_loc, float(impulse), stream)
-    check(status, "nb_block_collide")
+    out = _launch(planes, keys, w_lo, w_hi, t_blk, impulse, blk0, nb_loc)
     block_collision_deltas.launches += 1
-    return out[0], out[1]
+    return out
 
 
 block_collision_deltas.launches = 0
+
+
+def block_collision_walks(
+    planes: torch.Tensor,
+    keys: torch.Tensor,
+    w_lo: torch.Tensor,
+    w_hi: torch.Tensor,
+    *,
+    t_blk: int,
+    impulse: float,
+) -> dict:
+    """K6's counting instantiation on a CUDA tensor (one launch over every
+    block, not counted in `block_collision_deltas.launches`): the rows its
+    threads walk ("walked", the lane-pairs issued), the same with every lane
+    of a warp counted to the warp's longest walk in each tile or run
+    ("warp_slots"), the rows staged into shared memory ("staged"), the pairs
+    that pass the masks and overlap, which take the resolve path
+    ("overlapping"), the SM clock cycles its CTAs spent finding their runs
+    and walking them, summed over the CTAs ("cycles_runs", "cycles_walk"),
+    and the walked rows that lanes of warps with short runs read straight
+    from the planes, unstaged ("direct")."""
+    if planes.device.type != "cuda":
+        raise ValueError("block_collision_walks counts on the card only")
+    counts = torch.zeros(7, dtype=torch.int64, device=planes.device)
+    _launch(planes, keys, w_lo, w_hi, t_blk, impulse, 0, None,
+            counts=counts)
+    return dict(zip(("walked", "warp_slots", "staged", "overlapping",
+                     "cycles_runs", "cycles_walk", "direct"),
+                    (int(c) for c in counts.tolist())))

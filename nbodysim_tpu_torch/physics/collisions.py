@@ -52,6 +52,7 @@ from nbodysim_tpu_torch.kernels.collide_block import (
     block_collision_deltas,
     block_collision_deltas_plain,
     lead_offsets,
+    lex_searchsorted,
     window_length,
     window_start,
 )
@@ -267,27 +268,6 @@ def _lex_argsort(cols) -> torch.Tensor:
     return order
 
 
-def _lex_searchsorted(cols, qs, right: bool, n: int) -> torch.Tensor:
-    """Vectorised binary search over lex-sorted int32 columns `cols` ([n]
-    each) for the query tuples `qs` (arrays of any one shape): the left (or
-    right) insertion index, int32. log2(n) rounds of one small gather each;
-    the queries are per block, thousands, not millions."""
-    lo = torch.zeros(qs[0].shape, dtype=torch.int64, device=qs[0].device)
-    hi = torch.full(qs[0].shape, n, dtype=torch.int64, device=qs[0].device)
-    for _ in range(max(1, n - 1).bit_length() + 1):
-        mid = (lo + hi) >> 1
-        midc = torch.clamp(mid, max=n - 1)
-        ks = [c[midc] for c in cols]
-        # lex compare ks < qs (left) / ks <= qs (right), folded from the
-        # last key outward.
-        go = ks[-1] <= qs[-1] if right else ks[-1] < qs[-1]
-        for k, q in zip(reversed(ks[:-1]), reversed(qs[:-1])):
-            go = (k < q) | ((k == q) & go)
-        go = go & (lo < hi)
-        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
-    return lo.to(torch.int32)
-
-
 class _Blocks(NamedTuple):
     """What the block pass and its occupancy probe share."""
     t_blk: int
@@ -307,19 +287,23 @@ def _block_structure(pos: torch.Tensor, radius: torch.Tensor,
     neighbour windows and block coverage. The block size is
     `collision_block_size` on every device (K6 takes any multiple of 256;
     the TPU kernel forced 1024)."""
-    n, dim = pos.shape
-    device = pos.device
-    t_blk = config.collision_block_size
+    floor = torch.tensor(max(float(config.collision_cell_size), 1e-6),
+                         dtype=pos.dtype, device=pos.device)
+    bigs = _extract_bigs(radius, floor)
+    cell = torch.floor(pos / bigs.cell_size).to(torch.int32)      # [N, D]
+    return _blocks_of_cells(cell, bigs, config.collision_block_size)
+
+
+def _blocks_of_cells(cell: torch.Tensor, bigs: _Bigs, t_blk: int) -> _Blocks:
+    """The lex sort, per-block neighbour windows and block coverage of
+    int32 cells [N, D] (bigs sort last under the sentinel)."""
+    n, dim = cell.shape
+    device = cell.device
     w_len = window_length(t_blk)
     # Whole blocks, and at least one full window (the fixed-length windows
     # of the plain version must stay inside the array).
     nb = max(-(-n // t_blk), -(-w_len // t_blk))
     n_tot = nb * t_blk
-
-    floor = torch.tensor(max(float(config.collision_cell_size), 1e-6),
-                         dtype=pos.dtype, device=device)
-    bigs = _extract_bigs(radius, floor)
-    cell = torch.floor(pos / bigs.cell_size).to(torch.int32)      # [N, D]
     cols = ([torch.where(bigs.is_big, _CELL_SENTINEL, cell[:, 0])]
             + [cell[:, a] for a in range(1, dim)])
     order = _lex_argsort(cols)
@@ -340,8 +324,8 @@ def _block_structure(pos: torch.Tensor, radius: torch.Tensor,
     qhi = ([lasts[a][:, None] + offs[None, :, a] for a in range(dim - 1)]
            + [(lasts[dim - 1] + 1)[:, None].expand(-1, offs.shape[0])])
     rows = list(keys)
-    w_lo = _lex_searchsorted(rows, qlo, False, n_tot)            # [nb, n_off]
-    w_hi = _lex_searchsorted(rows, qhi, True, n_tot)
+    w_lo = lex_searchsorted(rows, qlo, False, n_tot)            # [nb, n_off]
+    w_hi = lex_searchsorted(rows, qhi, True, n_tot)
     ok_blk = (w_hi - window_start(w_lo, n_tot, t_blk) <= w_len).all(1)
     return _Blocks(t_blk, n_tot, order, cell, bigs, keys, w_lo, w_hi,
                    ok_blk)

@@ -24,8 +24,16 @@ operations and busy time (torch.profiler over 20 steps) and its idle share
 against the unprofiled step time, and the SM clock
 and power draw during the 1M x 1M launches (nvidia-smi every 100 ms). Where
 a checkout's K1 launcher takes a targets-per-thread count, k = 2 and 4 are
-timed beside the default. Then a table, and with --out, the JSON of all
-runs in that file.
+timed beside the default. K6 (the block pass's dense stage) is timed on
+three shapes: the N=1M galaxy merger in 2D (cell floor 0, as the smoke's
+main path), the N=4,194,304 merger's pass under 'auto' and the 3D N=1M
+merger under 'auto'; its largest difference from its plain version
+(`block_collision_deltas_plain`, the checkout's own) is read on four
+colliding blobs with one crowded cell (8192 bodies with 400 in the cell, as
+the GPU tests' crowded case, and 32,768 with 3000, as the smoke's blobs; 2D
+and 3D), beside the 1e-5 * max(max|v|, 10) tolerance of the velocities
+before the pass. `--only k6` times K6 alone. Then a table, and with --out,
+the JSON of all runs in that file.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import time
 from pathlib import Path
 
 
-def _worker(root: str) -> dict:
+def _worker(root: str, only: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -100,6 +108,10 @@ def _worker(root: str) -> dict:
         for k in (2, 4) if has_k else ():
             out[f"{name} k={k}"] = time_ms(lambda: kap._launch(
                 tgt, src, src_m, eps, 1.0, "K4", k=k), iters)
+
+    _k6_times(out, nt, coll, init_scene, time_ms, dev)
+    if only == "k6":
+        return out
 
     disc = uniform_disc(nt.SimConfig(n=25_000), device=dev)
     disc65 = uniform_disc(nt.SimConfig(n=65_536), device=dev)
@@ -221,6 +233,61 @@ def _worker(root: str) -> dict:
     return out
 
 
+def _k6_times(out, nt, coll, init_scene, time_ms, dev):
+    """K6 on its three shapes, each through the checkout's own block
+    structure and wrapper."""
+    import warnings
+
+    import torch
+
+    from nbodysim_tpu_torch.kernels.collide_block import (
+        block_collision_deltas, block_collision_deltas_plain)
+    for dim, n, crowd in ((2, 8192, 400), (3, 8192, 400), (2, 32_768, 3000),
+                          (3, 32_768, 3000)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(40 + dim)
+
+        def uni(shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+        half = (60.0 if dim == 2 else 20.0) * (n / 8192) ** (1 / dim)
+        pos = uni((n, dim), -half, half)
+        pos[1:1 + crowd] = uni((crowd, dim), 0.05, 0.95)
+        mass, radius = uni((n,), 0.5, 2.0), uni((n,), 0.5, 1.0)
+        radius[0], mass[0] = 15.0, 100.0
+        state = nt.ParticleState.create(pos, uni((n, dim), -5.0, 5.0), mass,
+                                        radius)
+        cfg = nt.SimConfig(n=n, dim=dim, collision_broad_phase="block",
+                           collision_cell_size=0.0)
+        s = coll._block_structure(state.pos, state.radius, cfg)
+        args = (coll._block_planes(state, s).planes, s.keys, s.w_lo, s.w_hi)
+        got = block_collision_deltas(*args, t_blk=s.t_blk, impulse=1.5)
+        ref = block_collision_deltas_plain(*args, t_blk=s.t_blk, impulse=1.5)
+        name = f"K6 err vs plain, {dim}D blob N={n}, {crowd} in a cell"
+        out[name] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        out[name + ", / tol"] = out[name] / (
+            1e-5 * max(float(state.vel.abs().max()), 10.0))
+        del state, s, args, got, ref
+    for name, n, dim in (("K6 2D merger N=1M", 1 << 20, 2),
+                         ("K6 N=4M merger pass", 1 << 22, 2),
+                         ("K6 3D merger N=1M", 1 << 20, 3)):
+        cfg = nt.SimConfig(n=n, dim=dim, dt=0.05, integrator="leapfrog_kdk",
+                           force_backend="cuda")
+        state = init_scene("galaxy_merger", cfg, device=dev)
+        if n == 1 << 20 and dim == 2:
+            cfg = cfg.replace(collision_broad_phase="block",
+                              collision_cell_size=0.0)
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cfg = coll.resolve_collision_phase_for_state(state, cfg)
+        s = coll._block_structure(state.pos, state.radius, cfg)
+        planes = coll._block_planes(state, s).planes
+        out[name] = time_ms(lambda: block_collision_deltas(
+            planes, s.keys, s.w_lo, s.w_hi, t_blk=s.t_blk, impulse=1.5), 20)
+        del state, s, planes
+
+
 def _device_busy(fn, count: int, torch):
     """(device rows, device busy ms) per unit over one torch.profiler window
     that runs `fn` once, `count` units' worth: the device rows' intervals
@@ -246,10 +313,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--out", help="write every run's JSON to this file")
+    ap.add_argument("--only", choices=("all", "k6"), default="all",
+                    help="time everything (default) or K6 alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print("RESULT " + json.dumps(_worker(args.worker)), flush=True)
+        print("RESULT " + json.dumps(_worker(args.worker, args.only)),
+              flush=True)
         return
     import torch
 
@@ -262,7 +332,8 @@ def main() -> None:
     print(smi.strip(), flush=True)
     runs = []
     for root in args.roots:
-        proc = subprocess.run([sys.executable, __file__, "--worker", root],
+        proc = subprocess.run([sys.executable, __file__, "--worker", root,
+                               "--only", args.only],
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("RESULT ")]
@@ -276,7 +347,7 @@ def main() -> None:
     print(f"{'':44s}" + "".join(f"{r['root'][-14:]:>16s}" for r in runs))
     for k in keys:
         print(f"{k:44s}" + "".join(
-            f"{r[k]:16.4f}" if k in r else f"{'-':>16s}" for r in runs))
+            f"{r[k]:16.6g}" if k in r else f"{'-':>16s}" for r in runs))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -53,3 +53,29 @@ def as_t(a) -> torch.Tensor:
 
 def as_np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def extreme_cells_case(n: int, dim: int, seed: int):
+    """A colliding cluster (pos, vel, mass, radius) with int32 cells [n, D]
+    drawn apart from the positions, from values at and near INT_MIN /
+    INT_MAX, around 0 and at +-2^30: lead cells that are neighbours only
+    through the int32 wrap (INT_MAX + 1 = INT_MIN), trailing cells whose
+    difference wraps to +-1 or is exactly 2^31 (abs(INT_MIN) = INT_MIN
+    passes the block pass's <= 1 test), and cells across the safe range's
+    edge. For K6's key masks, not for physics: the cells say nothing of
+    where the bodies are."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-12.0, 12.0, (n, dim)).astype(np.float32)
+    vel = rng.uniform(-5.0, 5.0, (n, dim)).astype(np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    radius = rng.uniform(0.5, 1.0, n).astype(np.float32)
+    lead = np.array([INT_MIN, INT_MIN + 1, -1, 0, 1, INT_MAX - 1, INT_MAX],
+                    np.int64)
+    trail = np.array([INT_MIN, INT_MIN + 1, -2, -1, 0, 1, 2 ** 30 - 1,
+                      2 ** 30, INT_MAX - 1, INT_MAX], np.int64)
+    cols = [rng.choice(lead, n) for _ in range(dim - 1)] + [
+        rng.choice(trail, n)]
+    return pos, vel, mass, radius, np.stack(cols, 1).astype(np.int32)

@@ -11,16 +11,18 @@ clustered blob, whose ~60-body core sums many overlapping pairs; momentum to
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 import nbodysim_tpu as nb
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu.physics import collisions as JC
 from nbodysim_tpu_torch.kernels.collide_block import (
-    block_collision_deltas, block_collision_deltas_plain)
+    block_collision_deltas, block_collision_deltas_plain, k6_needed_pairs,
+    lead_offsets, window_length, window_start)
 from nbodysim_tpu_torch.physics import collisions as TC
 
-from _torch_helpers import as_np, as_t
+from _torch_helpers import as_np, as_t, extreme_cells_case
 
 
 def _random(n, dim, seed, span=50.0, big=True):
@@ -223,3 +225,80 @@ def test_resolve_collisions_block_dispatch():
     # Head-on equal-mass, impulse 1.5: relative velocity scales by -0.5.
     np.testing.assert_allclose(as_np(out.vel), [[-0.5, 0.0], [0.5, 0.0]],
                                atol=1e-5)
+
+
+def _mask_count(planes, keys, w_lo, w_hi, t_blk):
+    """The plain version's key, span, ok and self masks, counted pair by
+    pair over every block's fixed windows (int32 wrap as torch computes)."""
+    dim, n_tot = keys.shape
+    ok = planes[-1] > 0
+    w_len = window_length(t_blk)
+    win = torch.arange(w_len)
+    total = 0
+    for b in range(n_tot // t_blk):
+        tgt = torch.arange(b * t_blk, (b + 1) * t_blk)
+        for o, off in enumerate(lead_offsets(dim)):
+            lo, hi = int(w_lo[b, o]), int(w_hi[b, o])
+            src = int(window_start(w_lo[b, o], n_tot, t_blk)) + win
+            m = ((src >= lo) & (src < hi))[None, :]
+            for a in range(dim - 1):
+                m = m & (keys[a, src][None, :] == keys[a, tgt][:, None]
+                         + off[a])
+            m = m & ((keys[dim - 1, src][None, :]
+                      - keys[dim - 1, tgt][:, None]).abs() <= 1)
+            m = m & ok[src][None, :] & ok[tgt][:, None]
+            total += int((m & (src[None, :] != tgt[:, None])).sum())
+    return total
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k6_needed_pairs_matches_a_count_of_the_masks(dim):
+    """`k6_needed_pairs` (the work of K6's bound) against a pair-by-pair
+    count of the plain version's masks, with uncovered blocks and a big
+    body in the state."""
+    n = 4096 if dim == 2 else 2048
+    arrays = list(_random(n, dim, seed=31, span=25.0 if dim == 2 else 8.0))
+    arrays[0][:600] = np.random.default_rng(3).uniform(
+        0.05, 0.95, (600, dim)).astype(np.float32)
+    _, ts = _states(arrays)
+    _, tc = _cfgs(n, dim)
+    S = TC._block_structure(ts.pos, ts.radius, tc)
+    planes = TC._block_planes(ts, S).planes
+    assert 0 < int(S.ok_blk.sum()) < S.ok_blk.numel()
+    needed = k6_needed_pairs(planes, S.keys)
+    assert needed > n
+    assert needed == _mask_count(planes, S.keys, S.w_lo, S.w_hi, S.t_blk)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_plain_k6_keeps_the_int32_wrap_of_jax(dim):
+    """Cells at and near INT_MIN / INT_MAX (neighbours only through the
+    wrap, trailing differences of exactly 2^31): the plain version's key
+    masks give JAX's dense stage on the same planes, keys and windows."""
+    n = 1024
+    pos, vel, mass, radius, cells = extreme_cells_case(n, dim, seed=41)
+    _, ts = _states((pos, vel, mass, radius))
+    jc, tc = _cfgs(n, dim)
+    floor = torch.tensor(1e-6, dtype=torch.float32)
+    S = TC._blocks_of_cells(as_t(cells), TC._extract_bigs(ts.radius, floor),
+                            tc.collision_block_size)
+    assert bool(S.ok_blk.any())
+    planes = TC._block_planes(ts, S).planes
+    dp, dv = block_collision_deltas_plain(planes, S.keys, S.w_lo, S.w_hi,
+                                          t_blk=S.t_blk, impulse=1.5)
+    # JAX's structure fields that its dense stage reads, for these windows.
+    offs = lead_offsets(dim)
+    s = dict(t_blk=S.t_blk, nb=S.n_tot // S.t_blk, n_tot=S.n_tot, dim=dim,
+             n_off=len(offs), lead_offs=offs, w_len=window_length(S.t_blk),
+             w_lo=jnp.asarray(as_np(S.w_lo)), w_hi=jnp.asarray(as_np(S.w_hi)),
+             start_row=jnp.asarray(as_np(window_start(S.w_lo, S.n_tot,
+                                                      S.t_blk))))
+    key_cols = [jnp.asarray(as_np(k)) for k in S.keys]
+    jplanes = [jnp.asarray(as_np(p)) for p in planes[:2 * dim + 2]] + key_cols
+    jdp, jdv = JC._block_dense_deltas(jplanes, key_cols,
+                                      jnp.asarray(as_np(planes[-1])), s, jc)
+    scale = max(float(np.abs(vel).max()), 1.0)
+    for ours, theirs in ((dp, jdp), (dv, jdv)):
+        np.testing.assert_allclose(as_np(ours), np.asarray(theirs),
+                                   atol=1e-5 * scale)
+    assert float(dv.abs().max()) > 0.1

@@ -20,7 +20,9 @@ from nbodysim_tpu_torch.kernels.collide import (
     allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
     rect_pair_deltas_plain)
 from nbodysim_tpu_torch.kernels.collide_block import (
-    block_collision_deltas, block_collision_deltas_plain)
+    _launch as k6_launch, block_collision_deltas,
+    block_collision_deltas_plain, block_collision_walks, k6_needed_pairs,
+    lead_offsets, lex_searchsorted, window_length)
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
     bucket_stencil_plain)
@@ -527,6 +529,127 @@ def test_k6_and_block_pass_match_plain(dev, dim, residual):
     p1 = (state.mass[:, None] * out.vel).sum(0)
     assert float((p1 - p0).abs().max()) <= \
         1e-5 * float((state.mass[:, None] * state.vel.abs()).sum())
+
+
+def _k6_hard_case(dev, dim, case, t_blk):
+    """K6's operands (planes, keys, w_lo, w_hi) and the sorted mass and
+    velocity for one of the hard cases: 'crowded' (400 bodies in one
+    covered cell: runs longer than a 256-row tile), 'uncovered' (3000 in
+    one cell: blocks with no covered target, covered blocks beside them),
+    'sentinels' (a ragged N: the last targets sit beside the big-body and
+    padding rows) or 'extremes' (cells at and near INT_MIN / INT_MAX, drawn
+    apart from the positions: the exact wrapping masks)."""
+    g = _gen(dev, 40 + dim)
+    n = 8092 if case == "sentinels" else 8192
+    half = 60.0 if dim == 2 else 20.0
+    pos = _uniform(g, (n, dim), -half, half)
+    crowd = {"crowded": 400, "uncovered": 3000}.get(case, 0)
+    pos[1:1 + crowd] = _uniform(g, (crowd, dim), 0.05, 0.95)
+    mass = _uniform(g, (n,), 0.5, 2.0)
+    radius = _uniform(g, (n,), 0.5, 1.0)
+    radius[0], mass[0] = 15.0, 100.0   # one big body
+    vel = _uniform(g, (n, dim), -5.0, 5.0)
+    if case == "extremes":
+        from _torch_helpers import extreme_cells_case
+        arrays = extreme_cells_case(n, dim, seed=dim)
+        pos, vel, mass, radius, cells = (torch.as_tensor(a, device=dev)
+                                         for a in arrays)
+    state = nt.ParticleState.create(pos, vel, mass, radius)
+    cfg = nt.SimConfig(n=n, dim=dim, collision_broad_phase="block",
+                       collision_cell_size=0.0, collision_block_size=t_blk)
+    if case == "extremes":
+        floor = torch.tensor(1e-6, device=dev)
+        s = coll._blocks_of_cells(cells, coll._extract_bigs(radius, floor),
+                                  t_blk)
+    else:
+        s = coll._block_structure(pos, radius, cfg)
+    planes = coll._block_planes(state, s).planes
+    return (planes, s.keys, s.w_lo, s.w_hi), s, planes[2 * dim], \
+        planes[dim:2 * dim].T
+
+
+@pytest.mark.parametrize("t_blk", [256, 1024])
+@pytest.mark.parametrize("case", ["crowded", "uncovered", "sentinels",
+                                  "extremes"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k6_matches_plain_on_hard_cases(dev, dim, case, t_blk):
+    _check_k6_hard_case(dev, dim, case, t_blk)
+
+
+def test_k6_reads_keys_through_l1_past_shared_memory(dev):
+    """At T = 6144 in 3D a window's keys (16 B a row, 2T + 512 rows) no
+    longer fit in a CTA's shared memory beside the tiles and runs, so the
+    launcher reads them through L1: the crowded case's checks, as at T =
+    256 and 1024. (At this T the other cases leave no ok row in the last
+    block, or no pair through the wrapped windows.)"""
+    t_blk = 6144
+    smem_cap, tiles_and_runs = 232448, 512 * 36 + 9 * 256 * 8
+    assert 16 * window_length(t_blk) > smem_cap - tiles_and_runs
+    _check_k6_hard_case(dev, 3, "crowded", t_blk)
+
+
+def _check_k6_hard_case(dev, dim, case, t_blk):
+    args, s, mass, vel = _k6_hard_case(dev, dim, case, t_blk)
+    got = block_collision_deltas(*args, t_blk=t_blk, impulse=1.5)
+    ref = block_collision_deltas_plain(*args, t_blk=t_blk, impulse=1.5)
+    torch.cuda.synchronize()
+    assert _close(got, ref, vel + ref[1])
+    # The same rows are hit, and something is.
+    hit, hit_ref = ((d != 0).any(1) for d in (got[1], ref[1]))
+    assert torch.equal(hit, hit_ref), \
+        f"rows hit: {int(hit.sum())}, plain {int(hit_ref.sum())}, " \
+        f"differing {int((hit != hit_ref).sum())}"
+    assert int(hit.sum()) > 100, f"{int(hit.sum())} rows hit"
+    ok = args[0][-1] > 0
+    nb = s.ok_blk.numel()
+    if case == "crowded":
+        # Some ok target's run is longer than a 256-row tile.
+        kt = s.keys[:, ok]
+        lead = [kt[a] for a in range(dim - 1)]
+        lo = lex_searchsorted(list(s.keys), lead + [kt[-1] - 1], False,
+                              s.n_tot)
+        hi = lex_searchsorted(list(s.keys), lead + [kt[-1] + 1], True,
+                              s.n_tot)
+        assert int((hi - lo).max()) > 256
+    if case == "uncovered":
+        assert 0 < int(s.ok_blk.sum()) < nb
+    if case == "sentinels":
+        last = slice(s.n_tot - t_blk, s.n_tot)
+        assert bool(ok[last].any()) and not bool(ok[last].all())
+    if case == "extremes":
+        assert bool(s.ok_blk.any())
+        return   # windows broken by the wrap are not two-sided
+    p0 = (mass[:, None] * ref[1]).sum(0)
+    p1 = (mass[:, None] * got[1]).sum(0)
+    scale = float((mass[:, None] * vel.abs()).sum())
+    assert float(p0.abs().max()) <= 1e-5 * scale
+    assert float(p1.abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k6_walks_its_runs(dev, dim):
+    """The counting instantiation: with every block covered and no key
+    near the int32 ends, the threads walk exactly the pairs the masks pass
+    plus each target's own row, staged or read directly; it gives the
+    uncounted launch's deltas bit for bit."""
+    state, cfg = _block_case(dev, dim, False)
+    s = coll._block_structure(state.pos, state.radius, cfg)
+    planes = coll._block_planes(state, s).planes
+    args = (planes, s.keys, s.w_lo, s.w_hi)
+    launches = block_collision_deltas.launches
+    walks = block_collision_walks(*args, t_blk=s.t_blk, impulse=1.5)
+    assert block_collision_deltas.launches == launches
+    n_ok = int((planes[-1] > 0).sum())
+    assert walks["walked"] == k6_needed_pairs(planes, s.keys) + n_ok
+    assert walks["walked"] <= walks["warp_slots"]
+    assert walks["direct"] <= walks["walked"]
+    assert walks["staged"] + walks["direct"] >= n_ok
+    assert 0 < walks["overlapping"] <= k6_needed_pairs(planes, s.keys)
+    counts = torch.zeros(7, dtype=torch.int64, device=dev)
+    counted = k6_launch(*args, s.t_blk, 1.5, 0, None, counts=counts)
+    plain = block_collision_deltas(*args, t_blk=s.t_blk, impulse=1.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(counted, plain))
 
 
 def test_merger_resolves_to_block_and_steps(dev):
