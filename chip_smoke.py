@@ -46,8 +46,8 @@ Phases, each printing its own lines:
                 Simulation(SimConfig(n=1M, enable_collisions=False)) under
                 'auto' running 20 steps with K1, K3 and K4 launched exactly
                 once per step and no other kernel, and the N=131,072 disc
-                raising NotImplementedError (it needs the
-                deep-overflow chain, not ported);
+                under 'auto' resolving to the deep-overflow chain with tiles
+                (with its warning) and running 2 steps;
   8. collide  — K5 against its plain version on 2D and 3D colliding clouds
                 (max_cheb 1 and None), at both big-body shapes [64 x 1M] and
                 [1M x 64] (with smalls moved inside the nuclei, so pairs
@@ -62,11 +62,14 @@ Phases, each printing its own lines:
                 4096 rows (1e-5 * max|a|), with the SM clock and power draw
                 during the launch; the N=4M merger under 'auto'
                 (block pass, its overflow, launches of one pass, one pass
-                timed by stage); Simulation of the N=1M merger (force_backend
-                "cuda", collisions resolved to the block pass): 1 warm-up
-                step, then run(3) with K1 and K6 launched once per step and
-                K5 at least twice; one bucket pass on phase 6's N=1M uniform
-                input with random velocities under 'auto';
+                timed by stage), and one force eval of its state under
+                config 5's forces (the deep chain), timed; Simulation of the
+                N=1M merger (force_backend "cuda", collisions resolved to the
+                block pass): 1 warm-up step, then run(3) with K1 and K6
+                launched once per step and K5 at least twice, then the same
+                under config 5's forces ("bh", bh_deep_levels=-1) with K1,
+                K3, K4 and K6 once per step; one bucket pass on phase 6's
+                N=1M uniform input with random velocities under 'auto';
   9. tree3d   — K7 against its plain version, as K3 in phase 7, on random
                 partially filled 3D bucket grids (rr = 1..4, eps = 0), on
                 grids filled the force path's way (rr 1-4, full cells,
@@ -83,7 +86,19 @@ Phases, each printing its own lines:
                 enable_collisions=False)) under 'auto' running 20 steps with
                 K1, K4 and K7 launched exactly once per step, and a 3D
                 Plummer sphere at N=131,072 raising NotImplementedError (it
-                needs the deep-overflow chain, not ported).
+                needs the 3D deep-overflow chain, not ported);
+ 10. deep     — Simulation(SimConfig(n=1,048,576), scene="uniform_disc")
+                under 'auto': the deep-overflow chain with its tiles (and
+                the warning that says so); the overflow, deep-path, refined
+                and halo shares; one eval timed whole and by stage with its
+                device idle share; the eval through the kernels against the
+                plain route (1e-5 * max|a|, index_add_ deterministic for
+                the comparison) and against exact K1 forces on 4096 rows
+                (median relative error < 2e-2 off the deep path, max|a| <
+                10x the exact one on it); 1 warm-up step, then run(5) with
+                K1, K3 and K4 launched exactly once per step; K1, K3 and K4
+                at the deep path's shapes against their plain versions,
+                timed and bounded.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -970,16 +985,30 @@ def main() -> None:
     require(math.isfinite(ke) and math.isfinite(pe),
             "tree path: non-finite energies")
 
-    disc131 = uniform_disc(SimConfig(n=131_072), device=dev)
-    try:
-        resolve_config_for_state(disc131.pos, disc131.mass,
-                                 SimConfig(n=131_072))
-    except NotImplementedError as exc:
-        say("tree", f"uniform_disc N=131072 under auto raises "
-            f"NotImplementedError: {exc}")
-    else:
-        fail("uniform_disc N=131072 under auto did not raise; it needs the "
-             "deep-overflow chain")
+    # The flagship disc from N = 131,072 overflows its buckets past the
+    # residual's cap: 'auto' switches the deep-overflow chain on.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim131 = Simulation(SimConfig(n=131_072), scene="uniform_disc")
+    c131 = sim131.config
+    over131 = bh.bh_near_overflow(sim131.state.pos, sim131.state.mass, c131)
+    tiles131 = bh._resolve_tile_params(
+        c131, bh._resolve_deep_levels(c131, bh._resolve_levels(c131, 131_072)),
+        bh._resolve_radius(c131))
+    sim131.run(2)
+    torch.cuda.synchronize()
+    ok131 = (c131.force_backend == "bh" and c131.bh_deep_levels == -1
+             and tiles131[0] > 0
+             and any("deep-overflow" in str(w.message) for w in caught)
+             and bool(torch.isfinite(sim131.state.pos).all()))
+    say("tree", f"uniform_disc N=131072 under auto (bucket overflow "
+        f"{over131}): force_backend {c131.force_backend}, bh_deep_levels "
+        f"{c131.bh_deep_levels}, tiles (k, t, T) {tiles131}, collisions "
+        f"{c131.collision_broad_phase}; 2 steps, state finite "
+        f"{'ok' if ok131 else 'FAIL'}")
+    require(ok131, "uniform_disc N=131072 under auto did not resolve to the "
+            "deep chain with tiles (with its warning) and run")
+    del sim131
 
     # -- 8. collide ----------------------------------------------------------
     t_phase8 = time.perf_counter()
@@ -1296,6 +1325,28 @@ def main() -> None:
         stages4["residual K5 (2 launches)"] = time_ms(
             lambda: coll._residual_corrections(
                 dp4, dv4, bp4.fields_s, bp4.ok_p, bp4.big_s, 1.5, 2, True), 5)
+        # Their bound: the residual's own inputs (as `_residual_corrections`
+        # builds them), the pairs both launches' masks pass (a symmetric
+        # count, so the 4M side is the chunked one), 8 columns a row in and
+        # 4 out for each launch's targets.
+        fs4 = bp4.fields_s
+        keep4 = bp4.ok_p | bp4.big_s
+        oi4 = torch.argsort(keep4.to(torch.int32),
+                            stable=True)[:coll._OVERFLOW_CAP]
+        o4 = (fs4[0][oi4], fs4[1][oi4],
+              torch.where(~keep4[oi4], fs4[2][oi4], 0.0), fs4[3][oi4],
+              fs4[4][oi4])
+        cover4 = fs4[:2] + (torch.where(bp4.ok_p, fs4[2], 0.0),) + fs4[3:]
+        res4_pairs = (k5_needed_pairs(fs4, o4, 1)
+                      + k5_needed_pairs(cover4, o4, 1))
+        rows4 = fs4[0].shape[0] + o4[0].shape[0]
+        res4_bound = bound(4.0 * 20 * rows4, 7.0 * res4_pairs)
+        say("collide", f"residual K5 at N={n4}, [{fs4[0].shape[0]} x "
+            f"{o4[0].shape[0]}] and [{o4[0].shape[0]} x {fs4[0].shape[0]}]: "
+            f"{res4_pairs:.4e} pairs through their masks of "
+            f"{2.0 * fs4[0].shape[0] * o4[0].shape[0]:.4e} tested, bound "
+            f"{res4_bound[0]:.4f} ms ({res4_bound[1]}) for both")
+        del fs4, keep4, oi4, o4, cover4
     else:
         residual_launches = 0
     stages4["scatter back"] = time_ms(scatter_back, 10)
@@ -1305,7 +1356,26 @@ def main() -> None:
         say("collide", f"  stage {name}: {ms:.4f} ms "
             f"({100 * ms / pass4_ms:.1f}% of the pass)")
     k6_report(f"N={n4} pass", bp4.planes, s4, stages4["K6"])
-    del merger4, s4, bp4, dp4, dv4, inv4
+    del s4, bp4, dp4, dv4, inv4
+    # One force evaluation of the N = 4M merger state under config 5's
+    # forces: the tree with the deep-overflow chain and tiles.
+    cfg4d = SimConfig(n=n4, force_backend="bh", bh_deep_levels=-1)
+    a4, deep4_first_ms = timed(lambda: bh.bh_accelerations(
+        merger4.pos, merger4.mass, cfg4d))
+    require(bool(torch.isfinite(a4).all()), "N=4M deep eval: non-finite")
+    del a4
+    deep4_ms = time_ms(lambda: bh.bh_accelerations(
+        merger4.pos, merger4.mass, cfg4d), 3)
+    lv4 = bh._resolve_levels(cfg4d, n4)
+    dp4_ = bh._resolve_deep_levels(cfg4d, lv4)
+    say("collide", f"merger N={n4}, config 5's forces (bh, bh_deep_levels="
+        f"-1; levels {lv4}, deep {dp4_}, tiles "
+        f"{bh._resolve_tile_params(cfg4d, dp4_, bh._resolve_radius(cfg4d))}"
+        f", bucket overflow "
+        f"{bh.bh_near_overflow(merger4.pos, merger4.mass, cfg4d)}): one "
+        f"eval {deep4_ms:.4f} ms (CUDA events, 3 evals after 1; the first "
+        f"took {deep4_first_ms:.4f} ms)")
+    del merger4
     say("collide", f"N=4M pass timed {since()}")
 
     # The main path of this slice: Simulation of the N = 1M merger.
@@ -1362,6 +1432,47 @@ def main() -> None:
         f"{since()}")
     require(math.isfinite(ke) and math.isfinite(pe),
             "merger path: non-finite energies")
+    del msim, mst
+
+    # The same merger under config 5's forces (scripts/profile_collide4m.py:
+    # force_backend "bh", bh_deep_levels=-1): the tree with the deep chain.
+    m5cfg = mcfg.replace(force_backend="bh", bh_deep_levels=-1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m5sim = Simulation(m5cfg, scene="galaxy_merger", device="cuda")
+    require(m5sim.config.force_backend == "bh"
+            and m5sim.config.bh_deep_levels == -1,
+            f"config 5 merger resolved to {m5sim.config.force_backend}, "
+            f"bh_deep_levels {m5sim.config.bh_deep_levels}")
+    m5sim.run(1)  # warm-up
+    torch.cuda.synchronize()
+    for c in counted:
+        c.launches = 0
+    start.record()
+    m5sim.run(3)
+    end.record()
+    torch.cuda.synchronize()
+    m5_launches = {"K1": allpairs_accelerations.launches,
+                   "K2": allpairs_collision_deltas.launches,
+                   "K3": bucket_stencil.launches,
+                   "K4": allpairs_accelerations_wide.launches,
+                   "K5": rect_pair_deltas.launches,
+                   "K6": block_collision_deltas.launches}
+    m5_steps_per_s = 3 / (start.elapsed_time(end) / 1e3)
+    say("collide", f"launches during run(3) of the N={n_m} merger under "
+        f"config 5's forces: {m5_launches}; {m5_steps_per_s:.4f} steps/s "
+        f"(CUDA events, after 1 warm-up step) against "
+        f"{merger_steps_per_s:.4f} with exact K1 forces; bucket overflow "
+        f"{bh.bh_near_overflow(m5sim.state.pos, m5sim.state.mass, m5cfg)}; "
+        f"{len(caught)} warnings at init")
+    require(m5_launches["K1"] == m5_launches["K3"] == m5_launches["K4"] == 3
+            and m5_launches["K6"] == 3 and m5_launches["K2"] == 0,
+            f"config 5 merger launches {m5_launches}: expected K1, K3, K4 "
+            f"and K6 once per step")
+    for name in ("pos", "vel", "acc"):
+        require(bool(torch.isfinite(getattr(m5sim.state, name)).all()),
+                f"config 5 merger path: non-finite {name}")
+    del m5sim
 
     # Kernel and plain times at the main path's shapes (the N=1M merger).
     k6_args = (mbp.planes, ms_.keys, ms_.w_lo, ms_.w_hi)
@@ -1718,13 +1829,330 @@ def main() -> None:
     try:
         resolve_config_for_state(plum.pos, plum.mass, pcfg)
     except NotImplementedError as exc:
-        require("item 10" in str(exc), f"unexpected message: {exc}")
+        require("Queue A item 1 (3D)" in str(exc),
+                f"unexpected message: {exc}")
         say("tree3d", f"plummer N=131072 dim=3 (overflow {over_pl}) under "
             f"auto raises NotImplementedError: {exc}")
     else:
         fail("3D plummer N=131072 under auto did not raise; it needs the "
              "deep-overflow chain")
     say("tree3d", f"phase 9 took {time.perf_counter() - t_phase9:.1f} s")
+
+    # -- 10. deep -------------------------------------------------------------
+    # The flagship disc at N = 1M, the default config under 'auto': the 2D
+    # tree with the deep-overflow chain and its tiles, collisions on.
+    t_phase10 = time.perf_counter()
+    n_d = 1 << 20
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dsim = Simulation(SimConfig(n=n_d), scene="uniform_disc")
+    dcfg = dsim.config
+    lv_d = bh._resolve_levels(dcfg, n_d)
+    deep_d = bh._resolve_deep_levels(dcfg, lv_d)
+    rad_d = bh._resolve_radius(dcfg)
+    tk_d, tt_d, tc_d = bh._resolve_tile_params(dcfg, deep_d, rad_d)
+    dpos, dmass = dsim.state.pos, dsim.state.mass
+    over_d = bh.bh_near_overflow(dpos, dmass, dcfg)
+    say("deep", f"uniform_disc N={n_d}, SimConfig() under auto: "
+        f"force_backend {dcfg.force_backend}, bh_deep_levels "
+        f"{dcfg.bh_deep_levels} (levels {lv_d}, deep {deep_d}, R {rad_d}), "
+        f"tiles (k, t, T) = {(tk_d, tt_d, tc_d)}, collisions "
+        f"{dcfg.collision_broad_phase}; bucket overflow {over_d} "
+        f"({100 * over_d / n_d:.2f}% of N); {len(caught)} warnings at init")
+    require(dcfg.force_backend == "bh" and dcfg.bh_deep_levels == -1
+            and deep_d > lv_d and tk_d > 0
+            and any("deep-overflow" in str(w.message) for w in caught),
+            "the N=1M disc did not resolve to the deep chain with tiles")
+
+    # The eval's intermediates, each stage timed alone on its own inputs
+    # (as `_bh_accelerations` and `_deep_chain` compute them).
+    rr_d, res_d, dcap_ = rad_d - 1, 1 << lv_d, bh.NEAR_CAP
+    ext_d = bh._extract_heavy_outliers(dpos, dmass)
+    out_d = ext_d["out_i"]
+    opos_d = dpos[out_d]
+    k1_src_d = torch.where(ext_d["is_heavy"], 0.0, dmass)
+    k4_src_d = torch.where(ext_d["out_sel"] & ~ext_d["is_heavy"][out_d],
+                           dmass[out_d], 0.0)
+    bulk_d, tm_d = ext_d["bulk_pos"], ext_d["tree_mass"]
+    grids_d, corner_d, size_d, cif_d, _ = bh._build_pyramid(
+        bulk_d, tm_d, deep_d, synth_quad=True)
+    ci_d = cif_d >> (deep_d - lv_d)
+    flat_d = ci_d[:, 0] * res_d + ci_d[:, 1]
+    flatnf_d = bh._outlier_flat_ids(flat_d, ext_d["is_out"], res_d * res_d)
+    terms_d = {lv: bh._m2l_level(grids_d[lv], corner_d, size_d, eps, rad_d)
+               for lv in range(2, deep_d + 1)}
+
+    def l2l_d(top=deep_d):
+        local = terms_d[2]
+        for lv in range(3, top + 1):
+            up = bh._l2l_upsample(local, size_d / (1 << lv))
+            local = tuple(u + t for u, t in zip(up, terms_d[lv]))
+        return local
+
+    lbucket_d, ldeep_d = l2l_d(lv_d), l2l_d()
+    bk_d = bh._bucket_grid(dpos, tm_d, ci_d, flatnf_d, res_d, dcap_, rr_d)
+    b_par_d = bh._deep_targets(flatnf_d, flat_d, ext_d["is_out"], res_d,
+                               dcap_, rad_d)
+    pay_d = bh._moment_payload(dpos, tm_d)
+    wring_d = tuple(torch.nn.functional.pad(g, (rr_d,) * 4)
+                    for g in grids_d[deep_d])
+    lagg_d = bh._fold_aggregate_ring(ldeep_d, wring_d, corner_d, size_d,
+                                     1 << deep_d, eps, rad_d, 0, 1 << deep_d)
+    g3p_d = torch.nn.functional.pad(torch.stack(grids_d[deep_d][:3], -1),
+                                    (0, 0, 1, 1, 1, 1))
+    tid_d, ts_d, orig_d = bh._tile_select(cif_d, b_par_d, deep_d, tt_d,
+                                          tc_d, rad_d)
+    cand_d = (ts_d[tid_d] < tc_d) & b_par_d
+    need_d = b_par_d & ~cand_d
+    n_bpar, n_ref, n_need = (int(b_par_d.sum()), int(cand_d.sum()),
+                             int(need_d.sum()))
+    sd_d, _ = bh._compact_indices(need_d, bh._deep_rows_cap(n_d))
+    sd_d = torch.clamp(sd_d, max=n_d - 1)
+
+    def deep_rows_d():
+        far = bh._l2p_eval(lagg_d, cif_d[sd_d], dpos[sd_d], corner_d, size_d,
+                           deep_d)
+        near = bh._deep_near_aggregates(dpos[sd_d], pay_d[sd_d, :3], g3p_d,
+                                        cif_d[sd_d], eps,
+                                        size_d / (1 << deep_d), rr=1)
+        return far, near
+
+    src_d = bh._tile_src_mask(cif_d, ts_d, deep_d, rad_d, tt_d, tc_d)
+    s_cap_d = bh._scatter_cap(n_d)
+    n_src = int(src_d.sum())
+    compact_src = n_src <= s_cap_d < n_d
+    ss_d, _ = bh._compact_indices(src_d, s_cap_d)
+    valid_s = ss_d < n_d
+    ss_d = torch.clamp(ss_d, max=n_d - 1)
+    sc_args = ((torch.where(valid_s[:, None], pay_d[ss_d], 0.0),
+                bulk_d[ss_d], cif_d[ss_d]) if compact_src
+               else (pay_d, bulk_d, cif_d))
+    sc_kw = {"src_mask": valid_s} if compact_src else {}
+    geo_d = (corner_d, size_d, deep_d, rad_d, tk_d, tt_d, tc_d)
+    m_rows = sc_args[0].shape[0]
+    cands = bh._tile_candidates(sc_args[2], ts_d, tt_d, tc_d, rad_d,
+                                (1 << deep_d) // tt_d)
+    on_edge = cands[1][0] | cands[2][0] | cands[3][0]
+    if compact_src:
+        on_edge = on_edge & valid_s
+    n_edge, halo_cap = int(on_edge.sum()), bh._halo_cap(m_rows)
+    g3k_d = bh._tile_scatter(*sc_args, ts_d, orig_d, *geo_d, **sc_kw)
+    span = torch.arange(tt_d + 2 * rad_d, device=dev)
+    locdp = torch.nn.functional.pad(torch.stack(ldeep_d, -1),
+                                    (0, 0, rad_d, rad_d, rad_d, rad_d))
+    lw_d = locdp[(orig_d[:, 0, None] + rad_d + span)[:, :, None],
+                 (orig_d[:, 1, None] + rad_d + span)[:, None, :]]
+    chain_d = bh._tile_chain(lw_d, g3k_d, orig_d, corner_d, size_d, deep_d,
+                             rad_d, eps, tk_d, tt_d, tc_d)
+    ra_d, _ = bh._compact_indices(cand_d, bh._refined_cap(n_d))
+    ra_d = torch.clamp(ra_d, max=n_d - 1)
+
+    def apply_d():
+        return bh._tile_apply(dpos[ra_d], pay_d[ra_d], bulk_d[ra_d],
+                              cif_d[ra_d], b_par_d[ra_d], chain_d, g3k_d,
+                              ts_d, orig_d, corner_d, size_d, deep_d, rad_d,
+                              eps, tk_d, tt_d, tc_d)
+
+    say("deep", f"deep-path targets {n_bpar} ({100 * n_bpar / n_d:.2f}% of "
+        f"N), refined by the tiles {n_ref} ({100 * n_ref / n_d:.2f}%), deep "
+        f"rows {n_need} (cap {bh._deep_rows_cap(n_d)}), tile sources "
+        f"{n_src} (cap {s_cap_d}: {'compacted' if compact_src else 'all rows'}"
+        f"), halo sources on an edge {n_edge} against the halo cap "
+        f"{halo_cap} of {m_rows} rows ({max(0, n_edge - halo_cap)} dropped)")
+    require(n_bpar > 0 and n_ref > 0, "the deep chain selected no target")
+
+    nacc_d = bucket_stencil(*bk_d.grid, counts=bk_d.counts, rr=rr_d,
+                            eps_sq=eps, center_rows=res_d)
+    eval_d = lambda: bh.bh_accelerations(dpos, dmass, dcfg)  # noqa: E731
+    deval_ms = time_ms(eval_d, 5, warmup=2)
+    dstages = {
+        "couplings: extraction": time_ms(
+            lambda: bh._extract_heavy_outliers(dpos, dmass), 5),
+        "couplings: heavy": time_ms(lambda: bh.heavy_coupling(
+            dpos, ext_d["h_pos"], ext_d["h_mass"], eps, gc), 5),
+        "couplings: K1 outliers <- all": time_ms(
+            lambda: allpairs_accelerations(
+                opos_d, None, eps_sq=eps, g_const=gc, src_pos=dpos,
+                src_mass=k1_src_d), 10),
+        "couplings: K4 bulk <- outliers": time_ms(
+            lambda: allpairs_accelerations_wide(
+                dpos, opos_d, k4_src_d, eps_sq=eps, g_const=gc), 10),
+        f"pyramid (synthesized, to level {deep_d})": time_ms(
+            lambda: bh._build_pyramid(bulk_d, tm_d, deep_d,
+                                      synth_quad=True), 5),
+        f"M2L levels 2-{deep_d}": sum(time_ms(
+            lambda: bh._m2l_level(grids_d[lv], corner_d, size_d, eps, rad_d),
+            3) for lv in range(2, deep_d + 1)),
+        f"L2L to level {deep_d}": time_ms(l2l_d, 3),
+        "L2P (bucket level)": time_ms(lambda: bh._l2p_eval(
+            lbucket_d, ci_d, dpos, corner_d, size_d, lv_d), 5),
+        "bucket gather": time_ms(lambda: bh._bucket_gather(
+            bk_d, nacc_d, res_d, dcap_), 5),
+        "sort and bucket scatter": time_ms(lambda: bh._bucket_grid(
+            dpos, tm_d, ci_d, flatnf_d, res_d, dcap_, rr_d), 5),
+        "K3 near field": time_ms(lambda: bucket_stencil(
+            *bk_d.grid, counts=bk_d.counts, rr=rr_d, eps_sq=eps,
+            center_rows=res_d), 20),
+        "deep targets": time_ms(lambda: bh._deep_targets(
+            flatnf_d, flat_d, ext_d["is_out"], res_d, dcap_, rad_d), 5),
+        "ring fold": time_ms(lambda: bh._fold_aggregate_ring(
+            ldeep_d, wring_d, corner_d, size_d, 1 << deep_d, eps, rad_d, 0,
+            1 << deep_d), 3),
+        "deep rows (L2P + 3x3 aggregates)": time_ms(deep_rows_d, 5),
+        "tile select": time_ms(lambda: bh._tile_select(
+            cif_d, b_par_d, deep_d, tt_d, tc_d, rad_d), 5),
+        "tile scatter": time_ms(lambda: bh._tile_scatter(
+            *sc_args, ts_d, orig_d, *geo_d, **sc_kw), 5),
+        "tile chain": time_ms(lambda: bh._tile_chain(
+            lw_d, g3k_d, orig_d, corner_d, size_d, deep_d, rad_d, eps, tk_d,
+            tt_d, tc_d), 3),
+        "tile apply": time_ms(apply_d, 5),
+    }
+    say("deep", f"eval N={n_d} disc: {deval_ms:.4f} ms through the kernels "
+        f"(CUDA events, 5 evals after 2)")
+    for name, ms in dstages.items():
+        say("deep", f"  stage {name}: {ms:.4f} ms "
+            f"({100 * ms / deval_ms:.1f}% of the eval)")
+    say("deep", f"  stages sum to {sum(dstages.values()):.4f} ms against "
+        f"the eval's {deval_ms:.4f}")
+    drows, dbusy_ms = device_profile(lambda: [eval_d() for _ in range(3)], 3)
+    if drows:
+        say("deep", f"eval device busy {dbusy_ms:.4f} ms per eval "
+            f"(torch.profiler, {3 * drows:.0f} device rows over 3 evals): "
+            f"the device idles {100 * (1 - dbusy_ms / deval_ms):.1f}% of "
+            f"the unprofiled {deval_ms:.4f} ms")
+    else:
+        say("deep", "eval device busy: not measured (the profiler recorded "
+            "no device rows)")
+
+    # Through the kernels against the plain route. index_add_'s atomics
+    # vary the pyramid's last bits from run to run, and the synthesized
+    # quadrupoles amplify them in the tile chain; with deterministic
+    # algorithms on, index_add_ sums in a fixed order, so both routes see
+    # the same pyramid and differ only by K1, K3 and K4.
+    a_dk = eval_d()
+    a_dp, dplain_ms = timed(lambda: bh.bh_accelerations(
+        dpos, dmass, dcfg, use_kernels=False))
+    noise = float((eval_d() - a_dk).abs().max())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            a_dk_det = eval_d()
+            a_dp_det = bh.bh_accelerations(dpos, dmass, dcfg,
+                                           use_kernels=False)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    derr = float((a_dk_det - a_dp_det).abs().max())
+    dscale = float(a_dp_det.abs().max())
+    ok = (bool(torch.isfinite(a_dk).all()) and bool(torch.isfinite(a_dp).all())
+          and derr <= 1e-5 * dscale)
+    say("deep", f"eval kernels vs plain route (deterministic index_add_): "
+        f"max_abs_err={derr:.3e} max|a|={dscale:.3e} tol={1e-5 * dscale:.3e} "
+        f"{'ok' if ok else 'FAIL'}; without it, two evals through the "
+        f"kernels differ by {noise:.3e} and the routes by "
+        f"{float((a_dk - a_dp).abs().max()):.3e}; the plain route took "
+        f"{dplain_ms:.4f} ms")
+    require(ok, "deep eval through the kernels disagrees with the plain "
+            "route")
+    del a_dk_det, a_dp_det, a_dp
+    rows_d = torch.randperm(n_d, generator=gen, device=dev)[:4096]
+    exact_d = allpairs_accelerations(dpos[rows_d], None, eps_sq=eps,
+                                     g_const=gc, src_pos=dpos,
+                                     src_mass=dmass)
+    rel_d = ((a_dk[rows_d] - exact_d).norm(dim=1)
+             / (exact_d.norm(dim=1) + 1e-12))
+    on_path = b_par_d[rows_d]
+    off = rel_d[~on_path]
+    med_off = float(off.median())
+    on_rel = rel_d[on_path].sort().values
+    amax_on = float(a_dk[rows_d][on_path].norm(dim=1).max()) if len(
+        on_rel) else 0.0
+    emax = float(exact_d.norm(dim=1).max())
+    ok = med_off < 2e-2 and amax_on < 10.0 * emax
+    say("deep", f"vs exact K1 on 4096 rows: {int((~on_path).sum())} rows "
+        f"off the deep path, median relative error {med_off:.4e} (bound "
+        f"< 2e-2); {len(on_rel)} deep-path rows, median "
+        + (f"{float(on_rel[len(on_rel) // 2]):.4e}, 99th percentile "
+           f"{float(on_rel[int(0.99 * (len(on_rel) - 1))]):.4e}"
+           if len(on_rel) else "none")
+        + f", max|a| {amax_on:.4e} against the exact {emax:.4e} (bound < "
+        f"10x) {'ok' if ok else 'FAIL'}")
+    require(ok, "deep eval too far from the exact forces")
+    del a_dk, exact_d
+
+    # The main path: 1 warm-up step, then run(5).
+    dsim.run(1)
+    torch.cuda.synchronize()
+    for c in counted + (bucket_stencil3,):
+        c.launches = 0
+    start.record()
+    dsim.run(5)
+    end.record()
+    torch.cuda.synchronize()
+    d_launches = {"K1": allpairs_accelerations.launches,
+                  "K2": allpairs_collision_deltas.launches,
+                  "K3": bucket_stencil.launches,
+                  "K4": allpairs_accelerations_wide.launches,
+                  "K5": rect_pair_deltas.launches,
+                  "K6": block_collision_deltas.launches,
+                  "K7": bucket_stencil3.launches}
+    d_steps_per_s = 5 / (start.elapsed_time(end) / 1e3)
+    say("deep", f"launches during run(5) of the N={n_d} disc: {d_launches}; "
+        f"{d_steps_per_s:.4f} steps/s (CUDA events, after 1 warm-up step)")
+    require(d_launches["K1"] == d_launches["K3"] == d_launches["K4"] == 5
+            and d_launches["K7"] == 0,
+            f"disc kernel launches {d_launches}: expected K1, K3 and K4 "
+            f"once per step")
+    require(dsim.frame == 6, f"frame {dsim.frame}, expected 6")
+    for name in ("pos", "vel", "acc"):
+        require(bool(torch.isfinite(getattr(dsim.state, name)).all()),
+                f"disc deep path: non-finite {name}")
+
+    # K1, K3 and K4 at the deep path's shapes: against the plain versions,
+    # timed, bounded.
+    k1_deep_err = rect_case(
+        f"K1 deep chain outliers <- all [{opos_d.shape[0]} x {n_d}]",
+        lambda t, sp, sm: allpairs_accelerations(
+            t, None, eps_sq=eps, g_const=gc, src_pos=sp, src_mass=sm),
+        opos_d, dpos, k1_src_d)
+    k4_deep_err = rect_case(
+        f"K4 deep chain bulk <- outliers [{n_d} x {opos_d.shape[0]}]",
+        lambda t, sp, sm: allpairs_accelerations_wide(
+            t, sp, sm, eps_sq=eps, g_const=gc), dpos, opos_d, k4_src_d)
+    k3_deep_err = near_case("deep", f"the N=1M disc's grid {res_d}x{res_d}x"
+                            f"{dcap_}, rr={rr_d}", bk_d.grid, bk_d.counts,
+                            eps, res_d, rr_d)
+    k3d_pairs, k3d_issued, _ = near_pairs(bk_d.counts, res_d, rr_d, dcap_)
+    k3d_bytes = 4.0 * (3 * float(bk_d.counts.sum()) + bk_d.counts.numel()
+                       + 2 * res_d * res_d * dcap_)
+    nout_d = opos_d.shape[0]
+    deep_k = {
+        "K1": (dstages["couplings: K1 outliers <- all"], time_ms(
+            lambda: allpairs_accelerations_plain(
+                opos_d, None, eps_sq=eps, g_const=gc, src_pos=dpos,
+                src_mass=k1_src_d), 2),
+               *pair_bound(float(n_d) * nout_d,
+                           4.0 * (3 * n_d + 4 * nout_d))),
+        "K3": (dstages["K3 near field"], time_ms(
+            lambda: bucket_stencil_plain(*bk_d.grid, rr_d, eps, res_d), 2),
+               *pair_bound(k3d_pairs, k3d_bytes)),
+        "K4": (dstages["couplings: K4 bulk <- outliers"], time_ms(
+            lambda: allpairs_accelerations_plain(
+                dpos, None, eps_sq=eps, g_const=gc, src_pos=opos_d,
+                src_mass=k4_src_d), 2),
+               *pair_bound(float(n_d) * nout_d,
+                           4.0 * (2 * n_d * 2 + 3 * nout_d))),
+    }
+    say("deep", f"K3 on the disc's grid: {k3d_pairs:.4e} occupied pairs "
+        f"needed, {k3d_issued:.4e} lane-pairs issued (a model estimate)")
+    for name, (ms, plain_ms_, bnd, by) in deep_k.items():
+        say("deep", f"{name} at the deep path's shape: kernel {ms:.4f} ms, "
+            f"plain {plain_ms_:.4f} ms, bound {bnd:.4f} ms ({by})")
+    del dsim, bk_d, nacc_d, grids_d, terms_d, lbucket_d, ldeep_d, lagg_d
+    del chain_d
+    say("deep", f"phase 10 took {time.perf_counter() - t_phase10:.1f} s")
 
     n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
@@ -1794,6 +2222,18 @@ def main() -> None:
               allpairs_cu, "nbodysim_tpu/kernels/allpairs.py:105",
               launches3["K4"], k4_err3, *tree3_k["K4"][:2],
               tree3_k["K4"][2:]),
+        entry(f"K1 allpairs_accelerations (deep chain, N=1M disc: "
+              f"{nout_d} outliers <- 1M)", allpairs_cu,
+              "nbodysim_tpu/kernels/allpairs.py:56", d_launches["K1"],
+              k1_deep_err, *deep_k["K1"][:2], deep_k["K1"][2:]),
+        entry(f"K3 bucket_stencil (deep chain, N=1M disc: {res_d}^2 x "
+              f"{dcap_}, rr={rr_d})", "nbodysim_tpu_torch/csrc/nearfield.cu",
+              "nbodysim_tpu/kernels/nearfield.py:49", d_launches["K3"],
+              k3_deep_err, *deep_k["K3"][:2], deep_k["K3"][2:]),
+        entry(f"K4 allpairs_accelerations_wide (deep chain, N=1M disc: 1M x "
+              f"{nout_d})", allpairs_cu,
+              "nbodysim_tpu/kernels/allpairs.py:105", d_launches["K4"],
+              k4_deep_err, *deep_k["K4"][:2], deep_k["K4"][2:]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

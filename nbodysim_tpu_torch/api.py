@@ -66,8 +66,9 @@ class Simulation:
                                **scene_kwargs)
         else:
             state = state.to(self.device)
-        # Pin 'auto' backends to the concrete ones for this device and N;
-        # what is not ported yet raises here, before any step.
+        # Pin 'auto' backends to the concrete ones for this device and N
+        # (the 2D deep chain switched on where the buckets overflow); what
+        # is not ported yet raises here, before any step.
         self.config = resolve_config_for_state(
             state.pos, state.mass, self.config)
         self.config = resolve_collision_phase_for_state(state, self.config)
@@ -100,10 +101,10 @@ class Simulation:
                 warnings.warn(
                     f"BH near-field overflow {over} exceeds the residual "
                     f"capacity {_OVERFLOW_CAP} on {when}; excess particles "
-                    f"get no near-field force. Use force_backend='cuda' for "
-                    f"this scene (the deep-overflow chain, "
-                    f"bh_deep_levels=-1, is not ported yet).",
-                    RuntimeWarning)
+                    f"get no near-field force. Set bh_deep_levels=-1 (the "
+                    f"deep-overflow chain; 2D only, the 3D chain is not "
+                    f"ported yet), or use force_backend='cuda' for this "
+                    f"scene.", RuntimeWarning)
         if not cfg.enable_collisions:
             return exceeded
         cap = collisions._OVERFLOW_CAP

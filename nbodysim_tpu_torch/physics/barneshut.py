@@ -1,5 +1,5 @@
 """The 2D tree code: a stencil-based multilevel FMM (port of
-`nbodysim_tpu.physics.barneshut`, without its deep-overflow chain).
+`nbodysim_tpu.physics.barneshut`).
 
 A kernel-independent FMM over the complete quadtree of a 2^L x 2^L grid;
 the JAX module's docstring gives the design at length:
@@ -20,19 +20,28 @@ the JAX module's docstring gives the design at length:
                  `_OUTLIER_CAP` most distant ones leave the tree and get
                  exact forces: outliers <- all through K1 with separate
                  sources, bulk <- outliers through K4.
+  deep chain:    with `bh_deep_levels != 0` (switched on by
+                 `forces.resolve_config_for_state` where the buckets overflow
+                 past the residual's cap) the pyramid and the downward pass
+                 continue past the bucket level; targets near an overflowing
+                 cell take the deep level's local expansion plus smoothed
+                 3 x 3 cell aggregates (the outer ring folded into the local
+                 terms), and inside the T hottest tiles the chain continues
+                 k sub-levels finer (`_tile_refine`). It skips the residual.
 
 Differences from the JAX package, each deliberate:
   * the M2L convolution runs in full f32 at every level, with cuDNN's TF32
     switched off around the call (the JAX package pins HIGHEST, and drops to
     HIGH, bf16x3, at r >= 1024; full f32 is at least as exact);
-  * the residual tiers are a Python branch on `int(overflow)`: one host
-    sync per force evaluation, where the JAX package uses `lax.cond`;
+  * the residual tiers, and the deep chain's row compactions, are Python
+    branches on a count read from the device: one host sync each, where
+    the JAX package uses `lax.cond`;
   * on the card the residual's pair blocks are 32768 wide instead of 2048
     (the same function in ~16x fewer launches);
-  * the deep-overflow chain and hot-zone tiles (`bh_deep_levels != 0`,
-    barneshut.py:803-1392 of the JAX package) are ROADMAP item 10: asking
-    for them raises NotImplementedError, and `forces.resolve_config_for_state`
-    raises where the JAX package would switch them on.
+  * the per-tile chain runs the T tiles as one batch where the JAX package
+    vmaps; the deep aggregates are always the per-offset gathers
+    (`_aggregate_window_eval`): the JAX package's packed variants sum the
+    same terms in the same order for the TPU's gather row rate.
 
 The bucket grid, its gather and the overflow residual take 2D and 3D
 alike; `physics/barneshut3d.py` (the octree) shares them.
@@ -114,13 +123,27 @@ def _synth_quad_channels(g3):
                         sy * sy * inv), -1)
 
 
+def _pool_synth(g):
+    """2 x 2 sum-pool of [..., 2r, 2r, C] grids in the fixed order
+    ((a00 + a01) + a10) + a11, the JAX package's on the CPU. Used for the
+    grids whose quadrupoles are synthesized (sx^2/m at absolute
+    coordinates): `_center_channels` centres them by subtracting ~m c^2,
+    which turns the pooled sums' last bits into ~1e-4 of the deep local
+    terms, so the order must be the reference's."""
+    r = g.shape[-2] // 2
+    a = g.reshape(g.shape[:-3] + (r, 2, r, 2, g.shape[-1]))
+    return ((a[..., 0, :, 0, :] + a[..., 0, :, 1, :])
+            + a[..., 1, :, 0, :]) + a[..., 1, :, 1, :]
+
+
 def _build_pyramid(pos, mass, levels: int, synth_quad: bool = False):
     """Six moment grids per level, levels L..0 (fine to coarse), from ONE
     [N, 6]-payload `index_add_` and one 2 x 2 pooling per level.
 
-    synth_quad=True scatters only (m, sx, sy) and synthesizes the
-    quadrupole channels as point-at-COM raw moments (the JAX package's deep
-    mode). Returns (grids, corner, size, ci [N, 2] int64, flat [N])."""
+    synth_quad=True scatters only (m, sx, sy), synthesizes the quadrupole
+    channels as point-at-COM raw moments (the JAX package's deep mode) and
+    pools in `_pool_synth`'s order. Returns (grids, corner, size, ci [N, 2]
+    int64, flat [N])."""
     corner, size = _bounding_box(pos)
     res = 1 << levels
     ci, flat = _cell_ids(pos, corner, size, res)
@@ -136,7 +159,8 @@ def _build_pyramid(pos, mass, levels: int, synth_quad: bool = False):
     grids = {levels: tuple(g6[:, :, i] for i in range(6))}
     for lv in range(levels - 1, -1, -1):
         r = 1 << lv
-        g6 = g6.reshape(r, 2, r, 2, 6).sum((1, 3))
+        g6 = (_pool_synth(g6) if synth_quad
+              else g6.reshape(r, 2, r, 2, 6).sum((1, 3)))
         grids[lv] = tuple(g6[:, :, i] for i in range(6))
     return grids, corner, size, ci, flat
 
@@ -145,8 +169,10 @@ def _m2l_level(grids_l, corner, size, eps_sq, radius: int):
     """V-list pass at one full level -> p=2 local terms (F, J, H).
 
     Even grids (every real level) run as the parent-level convolution
-    (`_m2l_conv`); the stencil is the reference and the odd-size path."""
-    r = grids_l[0].shape[0]
+    (`_m2l_conv`); the stencil is the reference and the odd-size path.
+    Even grids may carry leading batch axes (the deep chain's tiles), with
+    one corner per grid."""
+    r = grids_l[0].shape[-1]
     if r % 2 == 0 and r >= 2:
         qh = radius - 1
         gx = F.pad(torch.stack(grids_l, -1), (0, 0, 0, 0, 2 * qh, 2 * qh))
@@ -167,8 +193,9 @@ def _m2l_stencil(window, corner, size, r_full: int, eps_sq, radius: int,
     (p = 2*radius - 1, or `pad`), holding the `rows` target rows plus p halo
     rows on each side and p zero columns; `row0` is the global row of the
     first target row. `offsets`/`gate_parity`/`pad` generalize it beyond
-    the V-list (the deep chain's ring fold, ROADMAP item 10). Offsets are
-    summed in order, as the JAX package's scan does."""
+    the V-list (the deep chain's ring fold). Offsets are summed in order,
+    as the JAX package's scan does. The grids may carry leading batch axes,
+    with `corner` [..., 2] one corner per grid."""
     m_w, wx_w, wy_w, rxx_w, rxy_w, ryy_w = window
     s_l = size / r_full
     safe_m = torch.where(m_w > 0, m_w, 1.0)
@@ -183,8 +210,8 @@ def _m2l_stencil(window, corner, size, r_full: int, eps_sq, radius: int,
     shape = (rows, r_full)
     gx_i = _iota(shape, 0, device) + row0
     gy_i = _iota(shape, 1, device)
-    cx = corner[0] + (gx_i.to(dtype) + 0.5) * s_l
-    cy = corner[1] + (gy_i.to(dtype) + 0.5) * s_l
+    cx = corner[..., 0, None, None] + (gx_i.to(dtype) + 0.5) * s_l
+    cy = corner[..., 1, None, None] + (gy_i.to(dtype) + 0.5) * s_l
     parx = gx_i & 1
     pary = gy_i & 1
 
@@ -198,7 +225,7 @@ def _m2l_stencil(window, corner, size, r_full: int, eps_sq, radius: int,
     out = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(9)]
     for ox, oy in offsets:
         def sl(a):
-            return a[p + ox:p + ox + rows, p + oy:p + oy + r_full]
+            return a[..., p + ox:p + ox + rows, p + oy:p + oy + r_full]
 
         ms, sx, sy = sl(m_w), sl(comx), sl(comy)
         sqxx, sqxy, sqyy = sl(qxx), sl(qxy), sl(qyy)
@@ -354,15 +381,17 @@ def _m2l_conv_weights(radius: int, r_parent: int, eps_sq_hat, dtype, device):
 
 
 def _center_channels(g6, corner, size, r_full: int, x0: int):
-    """Raw origin moments [X, r, 6] -> moments about each cell's own centre
-    in CELL UNITS: (m, d/s_l, Q/s_l^2). x0 = global row of row 0."""
+    """Raw origin moments [..., X, r, 6] -> moments about each cell's own
+    centre in CELL UNITS: (m, d/s_l, Q/s_l^2). x0 = global row of row 0;
+    `corner` [..., 2] holds one corner per leading index."""
     dtype, device = g6.dtype, g6.device
     s_l = size / r_full
     inv_s = 1.0 / s_l
-    shape = g6.shape[:2]
-    cx = corner[0] + (_iota(shape, 0, device) + x0).to(dtype) * s_l \
-        + 0.5 * s_l
-    cy = corner[1] + _iota(shape, 1, device).to(dtype) * s_l + 0.5 * s_l
+    shape = g6.shape[-3:-1]
+    cx = corner[..., 0, None, None] \
+        + (_iota(shape, 0, device) + x0).to(dtype) * s_l + 0.5 * s_l
+    cy = corner[..., 1, None, None] \
+        + _iota(shape, 1, device).to(dtype) * s_l + 0.5 * s_l
     m = g6[..., 0]
     sx, sy = g6[..., 1], g6[..., 2]
     inv2 = inv_s * inv_s
@@ -392,10 +421,11 @@ def _m2l_conv(gx, corner, size, r_full: int, eps_sq, radius: int,
               row0: int, rows: int, r_parent: Optional[int] = None):
     """One 2D M2L level as the parent-level convolution.
 
-    gx: [rows + 4(Rp-1), r_full, 6] raw-moment row window whose first and
-    last 2(Rp-1) rows are halo (zeros beyond the grid); its row 0 is global
-    row row0 - 2(Rp-1). row0 and rows must be even. Returns the 9 local
-    terms, [rows, r_full] each.
+    gx: [..., rows + 4(Rp-1), r_full, 6] raw-moment row window whose first
+    and last 2(Rp-1) rows are halo (zeros beyond the grid); its row 0 is
+    global row row0 - 2(Rp-1). row0 and rows must be even. Leading axes
+    are a batch of grids (`corner` [..., 2], one corner each) run as one
+    convolution batch. Returns the 9 local terms, [..., rows, r_full] each.
 
     XLA's NHWC/HWIO `conv_general_dilated` becomes `F.conv2d` on NCHW/OIHW;
     both are cross-correlations, so the taps need no flip. It runs in full
@@ -406,39 +436,40 @@ def _m2l_conv(gx, corner, size, r_full: int, eps_sq, radius: int,
     h = r_full // 2
     hb = rows // 2
     dtype = gx.dtype
+    lead = gx.shape[:-3]
 
     ch = _center_channels(gx, corner, size, r_full, row0 - 2 * qh)
     X = rows + 4 * qh
-    m4 = (ch.reshape(X // 2, 2, h, 2, 6)
-          .permute(0, 2, 1, 3, 4)
-          .reshape(X // 2, h, 24))
-    m4 = F.pad(m4, (0, 0, qh, qh))                      # [X/2, h + 2qh, 24]
+    m4 = (ch.reshape(-1, X // 2, 2, h, 2, 6)
+          .permute(0, 1, 3, 2, 4, 5)
+          .reshape(-1, X // 2, h, 24))
+    m4 = F.pad(m4, (0, 0, qh, qh))                   # [B, X/2, h + 2qh, 24]
     s_l = size / r_full
     W = _m2l_conv_weights(radius, Rp, eps_sq / (s_l * s_l), dtype, gx.device)
     k = 2 * Rp - 1
     weight = W.reshape(k, k, 24, 36).permute(3, 2, 0, 1).contiguous()
     with _full_f32_conv():
-        out = F.conv2d(m4.permute(2, 0, 1)[None].contiguous(), weight)[0]
+        out = F.conv2d(m4.permute(0, 3, 1, 2).contiguous(), weight)
     inv_s = 1.0 / s_l
     s2 = inv_s * inv_s
     scales = (s2, s2, s2 * inv_s, s2 * inv_s, s2 * inv_s,
               s2 * s2, s2 * s2, s2 * s2, s2 * s2)
     # Channel (2c + d) * 9 + t of parent cell (i, j) is term t of child
-    # (2i + c, 2j + d): de-space-to-depth to [9, rows, r_full].
-    terms = (out.reshape(2, 2, 9, hb, h).permute(2, 3, 0, 4, 1)
-             .reshape(9, rows, r_full))
+    # (2i + c, 2j + d): de-space-to-depth to [9, B, rows, r_full].
+    terms = (out.reshape(-1, 2, 2, 9, hb, h).permute(3, 0, 4, 1, 5, 2)
+             .reshape((9,) + lead + (rows, r_full)))
     return tuple(terms[t] * scales[t] for t in range(9))
 
 
 def _l2l_upsample(local, s_child):
     """Shift parent local expansions to the 4 child centres and upsample:
     F' = F + J d + (1/2) d^T H d, J' = J + H d, H' = H (rectangular grids
-    too; the first row must be even)."""
+    too, with leading batch axes; the first row must be even)."""
     fx, fy, jxx, jxy, jyy, hxxx, hxxy, hxyy, hyyy = local
-    r0, r1 = fx.shape
+    r0, r1 = fx.shape[-2:]
 
     def up(a):
-        return a.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        return a.repeat_interleave(2, -2).repeat_interleave(2, -1)
 
     fxu, fyu = up(fx), up(fy)
     jxxu, jxyu, jyyu = up(jxx), up(jxy), up(jyy)
@@ -631,19 +662,23 @@ def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
 
 
 def _near_field_buckets(pos, mass, ci, flat, levels: int, eps_sq, g_const,
-                        cap: int, radius: int, use_kernels: bool = False):
+                        cap: int, radius: int, use_kernels: bool = False,
+                        skip_residual: bool = False):
     """Particle-particle near field on a dense [r, r, cap] bucket grid
     ([r, r, r, cap] in 3D: the JAX package's `_near_field_buckets` and
     `barneshut3d._near_field_buckets3`), with the exact residual for
-    overflowing cells. Particles with a flat id >= r^D (the extracted
-    outliers) stay out of the grid; their rows are garbage and the caller
-    discards them. Returns (acc [N, D], overflow_count tensor)."""
+    overflowing cells; skip_residual=True drops the residual (the deep
+    chain replaces those targets' near field). Particles with a flat id
+    >= r^D (the extracted outliers) stay out of the grid; their rows are
+    garbage and the caller discards them. Returns (acc [N, D],
+    overflow_count tensor)."""
     res = 1 << levels
     rr = radius - 1
     b = _bucket_grid(pos, mass, ci, flat, res, cap, rr)
     acc = _bucket_stencil_dispatch(b, rr, eps_sq, res, use_kernels)
-    acc_s = _overflow_residual(b, _bucket_gather(b, acc, res, cap), eps_sq,
-                               rr)
+    acc_s = _bucket_gather(b, acc, res, cap)
+    if not skip_residual:
+        acc_s = _overflow_residual(b, acc_s, eps_sq, rr)
     acc = torch.empty_like(acc_s)
     acc[b.order] = g_const * acc_s
     return acc, b.overflow
@@ -756,20 +791,498 @@ def _outlier_flat_ids(flat, is_out, n_cells: int):
         flat)
 
 
+# ---------------------------------------------------------------------------
+# The deep-overflow chain and its hot-zone tiles (the JAX package's
+# barneshut.py:803-1384). Names and signatures are the JAX package's, so the
+# banded multi-GPU tree can call the tile stages on their own.
+# ---------------------------------------------------------------------------
+
+_DEEP_SMOOTH = 0.09   # (0.3 s_d)^2: near-window cells act as Plummer clouds
+                      # of width ~0.3 cell (see `_deep_near_aggregates`)
+_HALO_MIN = 65536     # least halo-source capacity of `_tile_scatter`
+
+
+def _compact_indices(mask, cap: int):
+    """Fixed-capacity compaction of the True rows of `mask`: (sidx [cap],
+    count). sidx holds the indices of the first `cap` True rows in order,
+    the sentinel n beyond; count is the true total (a 0-dim tensor), and
+    callers take the full-length pass when it exceeds cap."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask, 0) - 1
+    sidx = torch.full((cap + 1,), n, dtype=torch.int64, device=mask.device)
+    sidx[torch.where(mask & (rank < cap), rank, cap)] = torch.arange(
+        n, device=mask.device)
+    return sidx[:cap], mask.sum()
+
+
+def _deep_rows_cap(n: int) -> int:
+    """Row capacity of the compacted deep L2P + aggregate pass when tiles
+    are on (the rows the tiles do not refine)."""
+    return max((3 * n) // 4, 4096)
+
+
+def _refined_cap(n: int) -> int:
+    """Row capacity of the compacted tile apply (the refined targets)."""
+    return max(n // 4, 4096)
+
+
+def _scatter_cap(n: int) -> int:
+    """Row capacity of the compacted tile-scatter sources (the selected
+    tiles' members and their selected-adjacent edge bands)."""
+    return max((3 * n) // 8, 4096)
+
+
+def _halo_cap(m: int) -> int:
+    """Halo sources `_tile_scatter` keeps of its `m` input rows; past it,
+    halo sources drop in index order. Unlike the other caps this one
+    changes results, so it is the JAX package's exactly."""
+    return min(m, max(m // 4, _HALO_MIN))
+
+
+def _tile_candidates(ci_f, tile_slot, t: int, T: int, radius: int,
+                     nt: int):
+    """Each row's four candidate tile windows at the deep level: its home
+    tile, and the x, y and corner neighbours when it lies within `radius`
+    cells of that tile edge. Returns [(ok, slot)] in the order home,
+    (1, 0), (0, 1), (1, 1); ok is True where that tile is selected."""
+    H = radius
+    tx, ty = ci_f[:, 0] // t, ci_f[:, 1] // t
+    mx, my = ci_f[:, 0] % t, ci_f[:, 1] % t
+    sx = torch.where(mx < H, -1, torch.where(mx >= t - H, 1, 0))
+    sy = torch.where(my < H, -1, torch.where(my >= t - H, 1, 0))
+    out = []
+    for cx, cy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        ctx = tx + sx if cx else tx
+        cty = ty + sy if cy else ty
+        ok = (ctx >= 0) & (ctx < nt) & (cty >= 0) & (cty < nt)
+        if cx:
+            ok = ok & (sx != 0)
+        if cy:
+            ok = ok & (sy != 0)
+        slot = tile_slot[torch.where(ok, ctx * nt + cty, nt * nt)]
+        out.append((ok & (slot < T), slot))
+    return out
+
+
+def _tile_src_mask(ci_f, tile_slot, deep: int, radius: int, t: int,
+                   T: int):
+    """Rows that can contribute moments to any selected tile window: the
+    selected tiles' members and the rows within `radius` of an edge whose
+    neighbour tile is selected."""
+    cands = _tile_candidates(ci_f, tile_slot, t, T, radius, (1 << deep) // t)
+    return cands[0][0] | cands[1][0] | cands[2][0] | cands[3][0]
+
+
+def _aggregate_window_eval(gp_flat, base, stride, payload, pos, eps_sq,
+                           rr: int):
+    """(2rr+1)^2 smoothed cell-aggregate kick, shared by the full-grid deep
+    path and the tile path. gp_flat: [M, 6] flattened padded raw-moment
+    cells (monopole at the COM plus quadrupole), or [M, 3] (m, sx, sy)
+    rows, each cell then a monopole at its COM. base: [N] flat index of
+    each particle's home cell in that layout; stride: its row stride;
+    payload (the particle's own row, subtracted from its home cell) has
+    gp_flat's channels. eps_sq arrives already widened by the Plummer-cloud
+    term. Offsets summed in (ox, oy) order. Returns [N, 2], unscaled by
+    g_const."""
+    mono = gp_flat.shape[1] == 3
+    px, py = pos[:, 0], pos[:, 1]
+    ax = torch.zeros_like(px)
+    ay = torch.zeros_like(py)
+    for ox in range(-rr, rr + 1):
+        for oy in range(-rr, rr + 1):
+            ch = gp_flat[base + (ox * stride + oy)]          # [N, 6 or 3]
+            if ox == 0 and oy == 0:
+                ch = ch - payload
+            m = ch[:, 0]
+            safe_m = torch.where(m > 0, m, 1.0)
+            comx = ch[:, 1] / safe_m
+            comy = ch[:, 2] / safe_m
+            dx = comx - px
+            dy = comy - py
+            q = dx * dx + dy * dy + eps_sq
+            inv = torch.rsqrt(q)
+            inv3 = inv * inv * inv
+            w3 = m * inv3
+            ax = ax + w3 * dx
+            ay = ay + w3 * dy
+            if mono:
+                continue
+            qxx = ch[:, 3] - m * comx * comx
+            qxy = ch[:, 4] - m * comx * comy
+            qyy = ch[:, 5] - m * comy * comy
+            inv5 = inv3 * inv * inv
+            inv7 = inv5 * inv * inv
+            u7 = 15.0 * inv7
+            u5 = 3.0 * inv5
+            txxx = u7 * dx * dx * dx - 3.0 * u5 * dx
+            txxy = u7 * dx * dx * dy - u5 * dy
+            txyy = u7 * dx * dy * dy - u5 * dx
+            tyyy = u7 * dy * dy * dy - 3.0 * u5 * dy
+            ax = ax + 0.5 * (qxx * txxx + 2.0 * qxy * txxy + qyy * txyy)
+            ay = ay + 0.5 * (qxx * txxy + 2.0 * qxy * txyy + qyy * tyyy)
+    return torch.stack([ax, ay], -1)
+
+
+def _deep_near_aggregates(pos, payload, gp, ci_deep, eps_sq, s_d,
+                          rr: int, row0=0):
+    """Smoothed-aggregate near field of the deep path: the (2rr+1)^2
+    deepest-level cell aggregates evaluated at each particle.
+
+    gp: [rows + 2rr, cols + 2rr, C] raw-moment window at the deep level,
+    PRE-PADDED (rr zeros on one device; a row band with real halo rows in
+    a banded tree); `row0` is the global deep row of its first real row,
+    and out-of-window targets gather clipped rows (callers mask them).
+    payload: [N, C] each particle's own row. Each cell acts as a Plummer
+    cloud: the softening is widened to eps^2 + (0.3 s_d)^2 (s_d the deep
+    cell size), so the kernel is smooth through a dense cell's interior
+    (see the JAX module). Returns [N, 2], unscaled by g_const."""
+    eps_sq = eps_sq + _DEEP_SMOOTH * s_d * s_d
+    rows = gp.shape[0] - 2 * rr
+    stride = gp.shape[1]
+    gp = gp.reshape(-1, gp.shape[-1])
+    row = torch.clamp(ci_deep[:, 0] - row0, 0, rows - 1) + rr
+    col = ci_deep[:, 1] + rr
+    return _aggregate_window_eval(gp, row * stride + col, stride, payload,
+                                  pos, eps_sq, rr)
+
+
+def _fold_aggregate_ring(local, window, corner, size, r_full: int, eps_sq,
+                         radius: int, row0, rows: int):
+    """Fold the OUTER ring (Chebyshev >= 2) of the smoothed aggregate window
+    into the local expansion as a dense stencil, so the per-particle pass
+    keeps only the inner 3 x 3. The folded cells are evaluated by the p=2
+    Taylor of the widened (Plummer-cloud) kernel about the cell centre.
+    `window`: 6 moment grids pre-padded by rr = radius - 1 (leading batch
+    axes allowed, `corner` [..., 2]). No-op when rr < 2."""
+    rr = radius - 1
+    if rr < 2:
+        return local
+    s_d = size / r_full
+    eps_w = eps_sq + _DEEP_SMOOTH * s_d * s_d
+    ring = [(ox, oy)
+            for ox in range(-rr, rr + 1)
+            for oy in range(-rr, rr + 1)
+            if max(abs(ox), abs(oy)) >= 2]
+    terms = _m2l_stencil(window, corner, size, r_full, eps_w, radius,
+                         row0=row0, rows=rows, offsets=ring,
+                         gate_parity=False, pad=rr)
+    return tuple(a + b for a, b in zip(local, terms))
+
+
+def _tile_select(ci_f, b_par, deep: int, t: int, T: int, radius: int):
+    """Top-T tiles by deep-path-target count. Returns (tid [N] home-tile
+    id, tile_slot [nt^2 + 1] tile id -> slot (T = unselected; the last
+    entry is the sentinel), orig [T, 2] window origin in deep cells = tile
+    corner - radius).
+
+    `lax.top_k` puts the lower index first among equal scores, and the
+    scores are integer counts, so ties are common: a stable descending
+    sort picks the same tiles in the same slots."""
+    nt = (1 << deep) // t
+    device = ci_f.device
+    tid = (ci_f[:, 0] // t) * nt + ci_f[:, 1] // t
+    scores = torch.zeros(nt * nt, dtype=torch.int64, device=device)
+    scores.index_add_(0, tid, b_par.to(torch.int64))
+    top_s, top_i = torch.sort(scores, descending=True, stable=True)
+    top_s, top_i = top_s[:T], top_i[:T]
+    # Score-0 tiles are not selected: they write to a dump entry past the
+    # sentinel, which stays T.
+    tile_slot = torch.full((nt * nt + 2,), T, dtype=torch.int64,
+                           device=device)
+    tile_slot[torch.where(top_s > 0, top_i, nt * nt + 1)] = torch.arange(
+        T, device=device)
+    orig = torch.stack([top_i // nt, top_i % nt], -1) * t - radius
+    return tid, tile_slot[:nt * nt + 1], orig
+
+
+def _tile_scatter(payload, bulk_pos, ci_f, tile_slot, orig, corner, size,
+                  deep: int, radius: int, k: int, t: int, T: int,
+                  src_mask=None):
+    """Moment scatter into the selected tile windows at 2^k x the deep
+    resolution -> g3k [T, Wf, Wf, 3] (m, sx, sy). Every row scatters into
+    its home tile; the halo candidates (x, y, corner neighbours, `radius`
+    cells from an edge) take only the first `_halo_cap(m)` rows, in index
+    order, of the rows on an edge whose neighbour tile is selected (and,
+    with `src_mask`, only those rows). The quadrupole channels are
+    synthesized per level in `_tile_chain`."""
+    m = bulk_pos.shape[0]
+    f = 1 << k
+    Wf = (t + 2 * radius) * f
+    drop = T * Wf * Wf
+    ci_sub, _ = _cell_ids(bulk_pos, corner, size, (1 << deep) * f)
+    pay3 = payload[:, :3]
+    cands = _tile_candidates(ci_f, tile_slot, t, T, radius, (1 << deep) // t)
+
+    def dest(ok, slot, sub):
+        rel = sub - orig[torch.clamp(slot, max=T - 1)] * f
+        return torch.where(ok, (slot * Wf + rel[:, 0]) * Wf + rel[:, 1],
+                           drop)
+
+    g3t = torch.zeros((drop + 1, 3), dtype=bulk_pos.dtype,
+                      device=bulk_pos.device)
+    g3t.index_add_(0, dest(*cands[0], ci_sub), pay3)
+    on_edge = cands[1][0] | cands[2][0] | cands[3][0]
+    if src_mask is not None:
+        on_edge = on_edge & src_mask
+    bidx = torch.argsort((~on_edge).to(torch.int32), stable=True)[
+        :_halo_cap(m)]
+    pay_b = torch.where(on_edge[bidx, None], pay3[bidx], 0.0)
+    for ok, slot in cands[1:]:
+        g3t.index_add_(0, dest(ok[bidx], slot[bidx], ci_sub[bidx]), pay_b)
+    return g3t[:drop].reshape(T, Wf, Wf, 3)
+
+
+def _tile_chain(local_w, g3k, orig, corner, size, deep: int, radius: int,
+                eps_sq, k: int, t: int, T: int):
+    """Per-tile sub-level chain, the T tiles as one batch: upsample the
+    window locals and add each sub-level's M2L terms (the tile grids'
+    parity stays aligned with the global hierarchy: window origins are even
+    at every sub-level), then fold the tile aggregate ring. Returns
+    local_w [T, Wf, Wf, 9]."""
+    W = t + 2 * radius
+    s_D = size / (1 << deep)
+    corner_t = corner[None, :] + orig.to(g3k.dtype) * s_D        # [T, 2]
+    size_w = W * s_D
+    pooled3 = {k: g3k}
+    for j in range(k - 1, 0, -1):
+        pooled3[j] = _pool_synth(pooled3[j + 1])
+    for j in range(1, k + 1):
+        g6 = _synth_quad_channels(pooled3[j])
+        up = _l2l_upsample(tuple(local_w[..., c] for c in range(9)),
+                           s_D / (1 << j))
+        terms = _m2l_level(tuple(g6[..., c] for c in range(6)), corner_t,
+                           size_w, eps_sq, radius)
+        local_w = torch.stack([a + b for a, b in zip(up, terms)], -1)
+    rr = radius - 1
+    if rr >= 2:
+        g6k = _synth_quad_channels(g3k)
+        window = tuple(F.pad(g6k[..., c], (rr, rr, rr, rr)) for c in range(6))
+        Wf = W << k
+        local_w = torch.stack(_fold_aggregate_ring(
+            tuple(local_w[..., c] for c in range(9)), window, corner_t,
+            size_w, Wf, eps_sq, radius, 0, Wf), -1)
+    return local_w
+
+
+def _tile_apply(pos, payload, bulk_pos, ci_f, b_par, local_w, g3k,
+                tile_slot, orig, corner, size, deep: int, radius: int,
+                eps_sq, k: int, t: int, T: int):
+    """Refined per-particle evaluation against the chained tile locals and
+    the tile aggregates (inner 3 x 3; the ring is folded into local_w).
+    Returns (refined [N] bool, far_ref [N, 2], near_ref [N, 2]); the
+    outputs are unscaled by g_const and garbage where ~refined."""
+    dtype = pos.dtype
+    rD = 1 << deep
+    f = 1 << k
+    Wf = (t + 2 * radius) * f
+    nt = rD // t
+    tid = (ci_f[:, 0] // t) * nt + ci_f[:, 1] // t
+    ci_sub, _ = _cell_ids(bulk_pos, corner, size, rD * f)
+    slot_home = tile_slot[tid]
+    refined = (slot_home < T) & b_par
+    sc = torch.clamp(slot_home, max=T - 1)
+    rel = torch.clamp(ci_sub - orig[sc] * f, 0, Wf - 1)
+
+    s_k = size / rD / f
+    centx = corner[0] + (ci_sub[:, 0].to(dtype) + 0.5) * s_k
+    centy = corner[1] + (ci_sub[:, 1].to(dtype) + 0.5) * s_k
+    g9 = local_w.reshape(T * Wf * Wf, 9)[(sc * Wf + rel[:, 0]) * Wf
+                                         + rel[:, 1]]
+    far_x, far_y = _taylor_eval(tuple(g9[:, i] for i in range(9)),
+                                pos[:, 0] - centx, pos[:, 1] - centy)
+
+    rin = min(radius - 1, 1)
+    g3kp = F.pad(g3k, (0, 0, rin, rin, rin, rin))
+    stride = Wf + 2 * rin
+    base = (sc * stride + rel[:, 0] + rin) * stride + rel[:, 1] + rin
+    near_ref = _aggregate_window_eval(
+        g3kp.reshape(-1, 3), base, stride, payload[:, :3], pos,
+        eps_sq + _DEEP_SMOOTH * s_k * s_k, rin)
+    return refined, torch.stack([far_x, far_y], -1), near_ref
+
+
+def _scatter_rows(n, idx, *rows):
+    """Rows computed for the compacted indices `idx` (the sentinel n where
+    invalid) back to length n, zero elsewhere."""
+    out = []
+    for r in rows:
+        full = torch.zeros((n + 1,) + r.shape[1:], dtype=r.dtype,
+                           device=r.device)
+        full[idx] = r
+        out.append(full[:n])
+    return out
+
+
+def _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
+               tid, tile_slot, orig, corner, size, deep: int, radius: int,
+               eps_sq, k: int, t: int, T: int):
+    """Per-tile chain and refined per-particle evaluation, given the window
+    slice of the level-D locals. The scatter takes only the rows that can
+    reach a selected window, and the apply only the refined targets,
+    each compacted to a fixed capacity when the count fits it (a host
+    sync), else over all rows; both give the same result."""
+    n = pos.shape[0]
+    geo = (corner, size, deep, radius, k, t, T)
+    s_cap = _scatter_cap(n)
+    g3k = None
+    if s_cap < n:
+        sidx_s, n_src = _compact_indices(
+            _tile_src_mask(ci_f, tile_slot, deep, radius, t, T), s_cap)
+        if int(n_src) <= s_cap:
+            valid_s = sidx_s < n
+            ss = torch.clamp(sidx_s, max=n - 1)
+            g3k = _tile_scatter(
+                torch.where(valid_s[:, None], payload[ss], 0.0),
+                bulk_pos[ss], ci_f[ss], tile_slot, orig, *geo,
+                src_mask=valid_s)
+    if g3k is None:
+        g3k = _tile_scatter(payload, bulk_pos, ci_f, tile_slot, orig, *geo)
+    local_w = _tile_chain(local_w, g3k, orig, corner, size, deep, radius,
+                          eps_sq, k, t, T)
+
+    cap = _refined_cap(n)
+    if cap < n:
+        sidx, n_cand = _compact_indices((tile_slot[tid] < T) & b_par, cap)
+        if int(n_cand) <= cap:
+            valid = sidx < n
+            si = torch.clamp(sidx, max=n - 1)
+            r_s, far_s, near_s = _tile_apply(
+                pos[si], payload[si], bulk_pos[si], ci_f[si],
+                b_par[si] & valid, local_w, g3k, tile_slot, orig,
+                corner, size, deep, radius, eps_sq, k, t, T)
+            return tuple(_scatter_rows(
+                n, torch.where(valid & r_s, si, n), r_s, far_s, near_s))
+    return _tile_apply(pos, payload, bulk_pos, ci_f, b_par, local_w, g3k,
+                       tile_slot, orig, corner, size, deep, radius, eps_sq,
+                       k, t, T)
+
+
+def _tile_refine(pos, payload, bulk_pos, ci_f, b_par, local_deep,
+                 corner, size, deep: int, radius: int, eps_sq,
+                 k: int, t: int, T: int):
+    """Hot-zone sub-box refinement: continue the deep chain k more levels
+    inside the T hottest t x t-cell tiles of the deepest level, so the
+    aggregates' smoothing scale drops 2^k where the targets crowd (see the
+    JAX module). Targets whose home tile is not selected keep the deep
+    path. Returns (refined [N] bool, far_ref [N, 2], near_ref [N, 2]),
+    unscaled by g_const and garbage where ~refined."""
+    H = radius
+    tid, tile_slot, orig = _tile_select(ci_f, b_par, deep, t, T, radius)
+    # Each tile's window of the level-D locals (zero-padded by H): one
+    # gather, no host sync for the origins.
+    locDp = F.pad(torch.stack(local_deep, -1), (0, 0, H, H, H, H))
+    span = torch.arange(t + 2 * H, device=pos.device)
+    rows = orig[:, 0, None] + H + span                       # [T, W]
+    cols = orig[:, 1, None] + H + span
+    local_w = locDp[rows[:, :, None], cols[:, None, :]]      # [T, W, W, 9]
+    return _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
+                      tid, tile_slot, orig, corner, size, deep, radius,
+                      eps_sq, k=k, t=t, T=T)
+
+
+def _deep_targets(flat_nf, flat, is_out, res: int, near_cap: int,
+                  radius: int):
+    """b_par [N]: the deep path's targets, the bulk rows whose bucket
+    stencil window (Chebyshev radius - 1) holds an overflowing cell.
+    Outliers never take it (and must not inflate the tile scores)."""
+    occ = torch.zeros(res * res + 1, dtype=torch.int32, device=flat.device)
+    occ.index_add_(0, torch.clamp(flat_nf, max=res * res),
+                   torch.ones_like(flat_nf, dtype=torch.int32))
+    hot = (occ[:res * res] > near_cap).to(torch.float32).reshape(
+        1, 1, res, res)
+    rr = radius - 1
+    bmask = F.max_pool2d(hot, 2 * rr + 1, stride=1, padding=rr)[0, 0] > 0
+    return bmask.reshape(-1)[flat] & ~is_out
+
+
+def _deep_chain(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
+                b_par, far, near, levels: int, deep: int, eps_sq: float,
+                g_const: float, radius: int, tile_levels: int,
+                tile_size: int, tile_count: int):
+    """The deep branch of `_bh_accelerations`: continue the downward pass
+    from the bucket level's locals to `deep`, and give the deep-path
+    targets (b_par) the deep L2P against the ring-folded locals plus the
+    inner 3 x 3 smoothed aggregates, then the tile refinement. Returns the
+    overridden (far, near), scaled by g_const."""
+    n = pos.shape[0]
+    for lv in range(levels + 1, deep + 1):
+        terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
+        up = _l2l_upsample(local, size / (1 << lv))
+        local = tuple(u + t for u, t in zip(up, terms))
+    local_deep = local
+
+    payload = _moment_payload(pos, tree_mass)
+    rrd = radius - 1
+    rin = min(rrd, 1)    # inner aggregate window; the ring folds into L2P
+    # The tiles must see the UN-folded local_deep: their sub-level chain
+    # re-decomposes the window the fold covers.
+    local_agg = _fold_aggregate_ring(
+        local_deep, tuple(F.pad(g, (rrd, rrd, rrd, rrd)) for g in grids[deep]),
+        corner, size, 1 << deep, eps_sq, radius, row0=0, rows=1 << deep)
+    g3_pad = F.pad(torch.stack(grids[deep][:3], -1),
+                   (0, 0, rin, rin, rin, rin))
+    s_d = size / (1 << deep)
+
+    def deep_rows(pos_r, ci_r, pay_r):
+        far_r = g_const * _l2p_eval(local_agg, ci_r, pos_r, corner, size,
+                                    deep)
+        near_r = g_const * _deep_near_aggregates(pos_r, pay_r, g3_pad, ci_r,
+                                                 eps_sq, s_d, rr=rin)
+        return far_r, near_r
+
+    rows_d = None
+    dcap = _deep_rows_cap(n)
+    if tile_levels and dcap < n:
+        # Rows the tiles refine discard the deep rows' output, so only
+        # b_par & ~refined rows run them (refined equals this cand).
+        tid_d, tile_slot_d, _ = _tile_select(ci_f, b_par, deep, tile_size,
+                                             tile_count, radius)
+        cand = (tile_slot_d[tid_d] < tile_count) & b_par
+        sidx, n_need = _compact_indices(b_par & ~cand, dcap)
+        if int(n_need) <= dcap:
+            valid = sidx < n
+            sd = torch.clamp(sidx, max=n - 1)
+            rows_d = _scatter_rows(n, torch.where(valid, sd, n),
+                                   *deep_rows(pos[sd], ci_f[sd],
+                                              payload[sd, :3]))
+    if rows_d is None:
+        rows_d = deep_rows(pos, ci_f, payload[:, :3])
+    far = torch.where(b_par[:, None], rows_d[0], far)
+    near = torch.where(b_par[:, None], rows_d[1], near)
+
+    if tile_levels:
+        refined, far_ref, near_ref = _tile_refine(
+            pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
+            deep, radius, eps_sq, k=tile_levels, t=tile_size, T=tile_count)
+        sel = refined[:, None]
+        far = torch.where(sel, g_const * far_ref, far)
+        near = torch.where(sel, g_const * near_ref, near)
+    return far, near
+
+
 def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
-                      near_cap: int, radius: int, use_kernels: bool):
-    """The tree-code force evaluation (the JAX package's `_bh_accelerations`
-    without its deep branch). With use_kernels, the near field is K3 and
-    the outlier couplings are K1 (outliers <- all) and K4 (bulk <-
-    outliers); on a CPU tensor those wrappers run their plain versions.
-    use_kernels=False runs the plain versions on any device."""
+                      near_cap: int, radius: int, use_kernels: bool = False,
+                      deep_levels: int = 0, tile_levels: int = 0,
+                      tile_size: int = 32, tile_count: int = 8):
+    """The tree-code force evaluation (the JAX package's `_bh_accelerations`).
+    With use_kernels, the near field is K3 and the outlier couplings are K1
+    (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor those
+    wrappers run their plain versions. use_kernels=False runs the plain
+    versions on any device. deep_levels > levels turns on the deep-overflow
+    chain (`_deep_chain`), tile_levels > 0 its hot-zone tiles."""
     ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
         pos, mass, eps_sq, g_const, use_kernels)
 
     tree_mass = ext["tree_mass"]          # the tree sees only the bulk
-    grids, corner, size, ci, flat = _build_pyramid(
-        ext["bulk_pos"], tree_mass, levels)
+    deep = deep_levels if deep_levels > levels else 0
+    grids, corner, size, ci_f, flat_f = _build_pyramid(
+        ext["bulk_pos"], tree_mass, deep or levels, synth_quad=bool(deep))
     res = 1 << levels
+    if deep:
+        ci = ci_f >> (deep - levels)           # bucket-level cell indices
+        flat = ci[:, 0] * res + ci[:, 1]
+    else:
+        ci, flat = ci_f, flat_f
 
     # Downward pass: M2L at each level + L2L to the next.
     local = None
@@ -782,9 +1295,17 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
             local = tuple(u + t for u, t in zip(up, terms))
 
     far = g_const * _l2p_eval(local, ci, pos, corner, size, levels)
+    flat_nf = _outlier_flat_ids(flat, ext["is_out"], res * res)
     near, _ = _near_field_buckets(
-        pos, tree_mass, ci, _outlier_flat_ids(flat, ext["is_out"], res * res),
-        levels, eps_sq, g_const, near_cap, radius, use_kernels=use_kernels)
+        pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
+        radius, use_kernels=use_kernels, skip_residual=bool(deep))
+    if deep:
+        b_par = _deep_targets(flat_nf, flat, ext["is_out"], res, near_cap,
+                              radius)
+        far, near = _deep_chain(
+            pos, ext["bulk_pos"], tree_mass, grids, local, corner, size,
+            ci_f, b_par, far, near, levels, deep, eps_sq, g_const, radius,
+            tile_levels, tile_size, tile_count)
     return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
 
 
@@ -825,8 +1346,11 @@ _MAX_DEEP_2D = 13
 
 
 def _resolve_deep_levels(config: SimConfig, levels: int) -> int:
-    """Deep-overflow chain depth (0 = off; -1 = auto, levels + 2; capped).
-    Any nonzero result needs ROADMAP item 10."""
+    """Deep-overflow chain depth: 0 disables; > 0 is explicit; -1 (auto)
+    descends 2 levels past the buckets (16x the per-cell resolution),
+    capped at `_MAX_DEEP_2D` (an 8192^2 moment grid). A depth at or above
+    the bucket level disables it. `forces.resolve_config_for_state` turns
+    auto on only for scenes whose overflow exceeds the residual's cap."""
     d = config.bh_deep_levels
     if d == 0:
         return 0
@@ -883,14 +1407,12 @@ def bh_accelerations(pos: torch.Tensor, mass: torch.Tensor,
     levels = _resolve_levels(config, n)
     deep = _resolve_deep_levels(config, levels)
     radius = _resolve_radius(config)
-    if deep:
-        raise NotImplementedError(
-            "the deep-overflow chain and hot-zone tiles (bh_deep_levels != "
-            "0) are ROADMAP item 10 and not ported yet")
+    tk, tt, tc = _resolve_tile_params(config, deep, radius)
     if use_kernels is None:
         # The JAX package's `_nf_use_pallas` (Pallas on the TPU).
         use_kernels = pos.device.type == "cuda"
     return _bh_accelerations(
         pos, mass, levels=levels, eps_sq=float(config.eps_sq),
         g_const=float(config.g_const), near_cap=NEAR_CAP, radius=radius,
-        use_kernels=use_kernels)
+        use_kernels=use_kernels, deep_levels=deep, tile_levels=tk,
+        tile_size=tt, tile_count=tc)

@@ -39,7 +39,7 @@ Differences from the JAX package, each deliberate:
     per evaluation;
   * the deep-overflow chain, hot-zone tiles and the sparse near field
     (`bh_deep_levels != 0`, barneshut3d.py:867-1022, 1041-1491 of the JAX
-    package) are ROADMAP item 10: asking for them raises
+    package) are ROADMAP Queue A item 1 (3D): asking for them raises
     NotImplementedError, and `forces.resolve_config_for_state` raises where
     the JAX package would switch them on.
 
@@ -63,7 +63,7 @@ from nbodysim_tpu_torch.physics.barneshut import (
     _near_overflow, _outlier_flat_ids)
 
 _MAX_LEVELS_3D = 7   # 128^3 cells; the JAX package's cap
-_MAX_DEEP_3D = 8     # the deep chain's cap (ROADMAP item 10)
+_MAX_DEEP_3D = 8     # the 3D deep chain's cap (ROADMAP Queue A item 1 (3D))
 
 
 def _moment_payload3(pos, mass):
@@ -520,7 +520,7 @@ def _resolve_radius3(config: SimConfig) -> int:
 
 def _resolve_deep_levels3(config: SimConfig, levels: int) -> int:
     """3D deep-overflow chain depth (0 = off; -1 = auto, levels + 2;
-    capped). Any nonzero result needs ROADMAP item 10."""
+    capped). Any nonzero result needs ROADMAP Queue A item 1 (3D)."""
     d = config.bh_deep_levels
     if d == 0:
         return 0
@@ -544,8 +544,8 @@ def bh3_accelerations(pos: torch.Tensor, mass: torch.Tensor,
     if _resolve_deep_levels3(config, levels):
         raise NotImplementedError(
             "the 3D deep-overflow chain, hot-zone tiles and sparse near "
-            "field (bh_deep_levels != 0) are ROADMAP item 10 and not "
-            "ported yet")
+            "field (bh_deep_levels != 0) are ROADMAP Queue A item 1 (3D) "
+            "and not ported yet")
     if use_kernels is None:
         use_kernels = pos.device.type == "cuda"
     return _bh3_accelerations(

@@ -14,13 +14,14 @@ with the self/coincident term skipped (reference Quadtree.hpp:124).
     the octree of physics/barneshut3d.py in 3D), per `force_backend`.
 
 What is not ported raises NotImplementedError and never falls back to
-another force law silently: the tree code's deep-overflow chain (ROADMAP
-item 10), which the JAX package switches on for scenes too clustered for
-the near-field buckets.
+another force law silently: the 3D tree code's deep-overflow chain
+(ROADMAP Queue A item 1 (3D)), which the JAX package switches on for 3D
+scenes too clustered for the near-field buckets.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -118,11 +119,13 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     picks the tree code, probe the near-field bucket occupancy of the
     actual particles once (`bh_near_overflow`, `bh3_near_overflow` in 3D)
     and pin `bh_nf_sparse` (`_resolve_nf_sparse`). Where the overflow
-    exceeds the exact residual's capacity, the JAX package turns on the
-    deep-overflow chain; that is ROADMAP item 10, so the port raises
-    NotImplementedError rather than run the tree without it. An explicit
-    force_backend='bh' keeps the user's choice (with the capacity warning
-    of `api.Simulation.check_capacity`)."""
+    exceeds the exact residual's capacity, the scene is too clustered for
+    the buckets alone: in 2D this warns (RuntimeWarning) and turns on the
+    deep-overflow chain and its tiles (bh_deep_levels=-1), as the JAX
+    package does; the 3D chain is ROADMAP Queue A item 1 (3D), so 3D
+    raises NotImplementedError rather than run the tree without it. An
+    explicit force_backend='bh' keeps the user's choice (with the capacity
+    warning of `api.Simulation.check_capacity`)."""
     n, dim = pos.shape[0], pos.shape[1]
     backend = resolve_backend(config, n, dim, pos.device)
     if backend != "bh" or config.force_backend != "auto":
@@ -130,11 +133,23 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     probe = bh3_near_overflow if dim == 3 else bh_near_overflow
     over = probe(pos, mass, config)
     if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
-        raise NotImplementedError(
+        if dim == 3:
+            raise NotImplementedError(
+                f"auto force backend: near-field overflow {over} exceeds "
+                f"the exact-residual capacity {_OVERFLOW_CAP}; this scene "
+                f"needs the 3D tree code's deep-overflow chain, which is "
+                f"ROADMAP Queue A item 1 (3D) and not ported yet. Set "
+                f"force_backend='cuda' for exact forces.")
+        warnings.warn(
             f"auto force backend: near-field overflow {over} exceeds the "
-            f"exact-residual capacity {_OVERFLOW_CAP}; this scene needs the "
-            f"tree code's deep-overflow chain, which is ROADMAP item 10 and "
-            f"not ported yet. Set force_backend='cuda' for exact forces.")
+            f"exact-residual capacity {_OVERFLOW_CAP}; enabling the "
+            f"deep-overflow multipole chain + tile refinement (tree-PM "
+            f"regime: forces inside ultra-dense cells are smoothed at the "
+            f"deep/tile-grid scale). Set force_backend explicitly to "
+            f"override.", RuntimeWarning)
+        # bh_tile_levels defaults to -1 (on with the deep chain); an
+        # explicit 0 keeps tiles off.
+        config = config.replace(bh_deep_levels=-1)
     return _resolve_nf_sparse(pos, config.replace(force_backend="bh"))
 
 
@@ -143,15 +158,15 @@ def _resolve_nf_sparse(pos, config: SimConfig) -> SimConfig:
     `_resolve_nf_sparse` does: 0 in 2D, and 0 in 3D whenever the deep chain
     is off. With the 3D deep chain on, the JAX package counts the
     bucket-tier targets (`bh3_bucket_tier_count`); that branch is ROADMAP
-    item 10 and raises here."""
+    Queue A item 1 (3D) and raises here."""
     if config.bh_nf_sparse != -1:
         return config
     if pos.shape[1] == 3 and _resolve_deep_levels3(
             config, _resolve_levels3(config, pos.shape[0])):
         raise NotImplementedError(
             "bh_nf_sparse=-1 with the 3D deep-overflow chain on needs the "
-            "sparse near field's bucket-tier probe, which is ROADMAP item 10 "
-            "and not ported yet")
+            "sparse near field's bucket-tier probe, which is ROADMAP Queue A "
+            "item 1 (3D) and not ported yet")
     return config.replace(bh_nf_sparse=0)
 
 

@@ -244,32 +244,41 @@ def test_bh_dispatch_and_one_simulation_step_match_jax():
 @pytest.mark.parametrize("n_hot", [0, 60_000])
 def test_resolve_config_for_state_agrees_on_the_deep_chain(n_hot):
     """'auto' at N = 100k picks the tree; where the JAX package turns the
-    deep-overflow chain on (overflow > _OVERFLOW_CAP), the port raises."""
+    deep-overflow chain on (overflow > _OVERFLOW_CAP), so does the port,
+    with the same warning, and both pin the same configuration."""
     n = 100_000
     pos, mass = _clustered(n, n_hot, seed=9)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         jcfg = jforces.resolve_config_for_state(
             jnp.asarray(pos), jnp.asarray(mass), JaxConfig(n=n))
-    cfg = nt.SimConfig(n=n)
+    cfg = nt.SimConfig(n=n, enable_collisions=False)
     over = tb.bh_near_overflow(as_t(pos), as_t(mass), cfg)
     assert over == jb.bh_near_overflow(jnp.asarray(pos), jnp.asarray(mass),
                                        JaxConfig(n=n))
+    fields = ("force_backend", "bh_deep_levels", "bh_tile_levels",
+              "bh_nf_sparse")
     if jcfg.bh_deep_levels != 0:
         assert n_hot and over > tb._OVERFLOW_CAP
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            nt.Simulation(cfg, state=nt.ParticleState.create(
+        with pytest.warns(RuntimeWarning, match="deep-overflow"):
+            got = tforces.resolve_config_for_state(as_t(pos), as_t(mass),
+                                                   cfg)
+        with pytest.warns(RuntimeWarning, match="deep-overflow"):
+            sim = nt.Simulation(cfg, state=nt.ParticleState.create(
                 as_t(pos), torch.zeros(n, 2), as_t(mass)), device=CPU)
+        assert sim.config.bh_deep_levels == -1
+        assert sim.check_capacity() is False
     else:
         assert not n_hot
         got = tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
-        assert (got.force_backend, got.bh_deep_levels) == (
-            jcfg.force_backend, jcfg.bh_deep_levels)
+    assert tuple(getattr(got, f) for f in fields) == tuple(
+        getattr(jcfg, f) for f in fields)
 
 
 def test_explicit_bh_overflow_warns_and_deep_chain_raises():
+    """An explicit "bh" past the residual's cap warns; the 2D deep chain
+    runs and matches the JAX package on a small system; the 3D chain is
+    ROADMAP Queue A item 1 (3D) and raises."""
     n = 40_000
     pos, mass = _clustered(n, 30_000, seed=11)
     state = nt.ParticleState.create(as_t(pos), torch.zeros(n, 2), as_t(mass))
@@ -277,14 +286,18 @@ def test_explicit_bh_overflow_warns_and_deep_chain_raises():
     with pytest.warns(RuntimeWarning, match="residual capacity"):
         sim = nt.Simulation(cfg, state=state, device=CPU)
     assert sim.check_capacity() is True
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tb.bh_accelerations(as_t(pos[:64]), as_t(mass[:64]),
-                            cfg.replace(bh_deep_levels=-1))
-    # 3D: the octree runs; its deep chain is item 10 too.
+    deep = cfg.replace(n=64, bh_deep_levels=-1)
+    acc = tb.bh_accelerations(as_t(pos[:64]), as_t(mass[:64]), deep)
+    ref = jb.bh_accelerations(jnp.asarray(pos[:64]), jnp.asarray(mass[:64]),
+                              JaxConfig(n=64, force_backend="bh",
+                                        bh_deep_levels=-1))
+    assert bool(torch.isfinite(acc).all())
+    _close(acc, ref)
+    # 3D: the octree runs; its deep chain raises.
     pos3, mass3 = rand_system(64, dim=3)
     acc3 = tb.bh_accelerations(as_t(pos3), as_t(mass3), cfg.replace(dim=3))
     assert acc3.shape == (64, 3) and bool(torch.isfinite(acc3).all())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
         tb.bh_accelerations(as_t(pos3), as_t(mass3),
                             cfg.replace(dim=3, bh_deep_levels=-1))
 
@@ -295,7 +308,7 @@ def test_explicit_bh_overflow_warns_and_deep_chain_raises():
     {"bh_deep_levels": -1, "bh_tile_levels": 0}])
 def test_resolved_tree_parameters_match_jax(cfg):
     """Levels, radius, deep-chain depth and tile parameters resolve as in
-    the JAX package (the last two only describe what item 10 will run)."""
+    the JAX package."""
     n = 50_000
     tcfg, jcfg = nt.SimConfig(n=n, **cfg), JaxConfig(n=n, **cfg)
     levels = tb._resolve_levels(tcfg, n)

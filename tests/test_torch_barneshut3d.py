@@ -278,7 +278,8 @@ def _scene(kind):
 def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
     """'auto' picks the octree from BH3_AUTO_THRESHOLD; where the JAX
     package turns the deep-overflow chain on (overflow > _OVERFLOW_CAP), the
-    port raises naming item 10. Both thresholds are patched small, as
+    port raises naming ROADMAP Queue A item 1 (3D). Both thresholds are
+    patched small, as
     tests/test_barneshut3d.py does."""
     monkeypatch.setattr(jforces, "BH3_AUTO_THRESHOLD", 256)
     monkeypatch.setattr(jb, "_OVERFLOW_CAP", 64)
@@ -297,9 +298,9 @@ def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
                                                    bh_levels=3))
     if kind == "clump":
         assert jcfg.bh_deep_levels != 0 and over > 64
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
             tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
             nt.Simulation(cfg, state=nt.ParticleState.create(
                 as_t(pos), torch.zeros(512, 3), as_t(mass)), device=CPU)
         return
@@ -312,7 +313,8 @@ def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
 def test_nf_sparse_resolution_matches_jax(monkeypatch):
     """The JAX package pins bh_nf_sparse = -1 to 0 in 2D
     (`_resolve_nf_sparse`); so does the port. An explicit value is kept;
-    with the 3D deep chain on, the sparse near field's probe is item 10."""
+    with the 3D deep chain on, the sparse near field's probe is ROADMAP
+    Queue A item 1 (3D)."""
     monkeypatch.setattr(jforces, "BH_AUTO_THRESHOLD", 256)
     monkeypatch.setattr(tforces, "BH_AUTO_THRESHOLD", 256)
     pos, mass = rand_system(1024)
@@ -328,7 +330,7 @@ def test_nf_sparse_resolution_matches_jax(monkeypatch):
     assert tforces._resolve_nf_sparse(pos3, cfg3).bh_nf_sparse == 0
     assert tforces._resolve_nf_sparse(
         pos3, cfg3.replace(bh_nf_sparse=1)).bh_nf_sparse == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
         tforces._resolve_nf_sparse(pos3, cfg3.replace(bh_deep_levels=-1))
 
 
@@ -338,7 +340,8 @@ def test_nf_sparse_resolution_matches_jax(monkeypatch):
     (50_000, {"bh_deep_levels": -1}), (50_000, {"bh_deep_levels": 12})])
 def test_resolved_octree_parameters_match_jax(n, cfg):
     """Levels, radius and deep-chain depth resolve as in the JAX package
-    (the last only describes what item 10 will run); N = 1M gives the main
+    (the last only describes what the 3D chain will run); N = 1M gives the
+    main
     path's 64^3 cells at R = 2."""
     tcfg, jcfg = nt.SimConfig(n=n, dim=3, **cfg), JaxConfig(n=n, dim=3, **cfg)
     levels = tb3._resolve_levels3(tcfg, n)

@@ -9,6 +9,8 @@ card and without JAX (tests/conftest.py imports JAX), run:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import warnings
+
 import pytest
 import torch
 
@@ -26,6 +28,7 @@ from nbodysim_tpu_torch.kernels.collide_block import (
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
     bucket_stencil_plain)
+from nbodysim_tpu_torch.physics import barneshut as bh
 from nbodysim_tpu_torch.physics import collisions as coll
 from nbodysim_tpu_torch.physics.barneshut import bh_accelerations
 
@@ -755,3 +758,88 @@ def test_k5_ragged_3d_matches_plain(dev, max_cheb):
     torch.cuda.synchronize()
     assert _close(got, ref, tgt[1] + ref[1])
     assert float(ref[1].abs().max()) > 1e-3
+
+
+def _deep_blobs(dev, n):
+    """Two dense Gaussian blobs (half the bodies) in a uniform +-4000
+    background: the buckets overflow far past the residual's cap."""
+    g = _gen(dev, 8)
+    blob1 = 60.0 * torch.randn((n // 4, 2), generator=g, device=dev) \
+        + torch.tensor([1500.0, -700.0], device=dev)
+    blob2 = 40.0 * torch.randn((n // 4, 2), generator=g, device=dev) \
+        + torch.tensor([-2000.0, 1000.0], device=dev)
+    bg = _uniform(g, (n // 2, 2), -4000.0, 4000.0)
+    return torch.cat([blob1, blob2, bg]), _uniform(g, (n,), 0.1, 10.0)
+
+
+def test_deep_chain_runs_through_the_kernels(dev):
+    """The deep chain with tiles at N = 65,536 (levels 7, deep 9): K1, K3
+    and K4 once each, against the plain route within 1e-5 * max|a|. With
+    deterministic algorithms on, index_add_ sums in a fixed order, so both
+    routes build the same pyramid (its atomics' last bits are amplified by
+    the tiles' synthesized quadrupoles) and differ only by the kernels."""
+    n = 65_536
+    pos, mass = _deep_blobs(dev, n)
+    cfg = nt.SimConfig(n=n, force_backend="bh", bh_deep_levels=-1)
+    levels = bh._resolve_levels(cfg, n)
+    deep = bh._resolve_deep_levels(cfg, levels)
+    assert bh._resolve_tile_params(cfg, deep, bh._resolve_radius(cfg))[0]
+    assert bh.bh_near_overflow(pos, mass, cfg) > bh._OVERFLOW_CAP
+    for c in (allpairs_accelerations, allpairs_accelerations_wide,
+              bucket_stencil):
+        c.launches = 0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            got = bh_accelerations(pos, mass, cfg)
+            ref = bh_accelerations(pos, mass, cfg, use_kernels=False)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (allpairs_accelerations.launches, bucket_stencil.launches,
+            allpairs_accelerations_wide.launches) == (1, 1, 1)
+    assert bool(torch.isfinite(got).all())
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_tile_selection_on_the_card_equals_the_cpu(dev):
+    """Deep-path targets, tile selection (ties broken as lax.top_k does),
+    the refined set and the compaction indices: integers, equal on the
+    card and on the CPU."""
+    n = 65_536
+    pos, mass = _deep_blobs(dev, n)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p, m = pos.to(d), mass.to(d)
+        ext = bh._extract_heavy_outliers(p, m)
+        levels, deep, radius, t, T = 7, 9, 3, 32, 8
+        _, _, _, ci_f, _ = bh._build_pyramid(ext["bulk_pos"],
+                                             ext["tree_mass"], deep,
+                                             synth_quad=True)
+        res = 1 << levels
+        ci = ci_f >> (deep - levels)
+        flat = ci[:, 0] * res + ci[:, 1]
+        flat_nf = bh._outlier_flat_ids(flat, ext["is_out"], res * res)
+        b_par = bh._deep_targets(flat_nf, flat, ext["is_out"], res,
+                                 bh.NEAR_CAP, radius)
+        tid, tile_slot, orig = bh._tile_select(ci_f, b_par, deep, t, T,
+                                               radius)
+        cand = (tile_slot[tid] < T) & b_par
+        sidx, count = bh._compact_indices(cand, bh._refined_cap(n))
+        # Tied scores across the top-T boundary: 5 targets in each of 12
+        # tiles of an 8 x 8 tile grid, and 2 in the others.
+        tiles = torch.arange(64, device=d)
+        per = torch.where(torch.isin(tiles, torch.tensor(
+            [3, 10, 17, 40, 41, 50, 60, 62, 63, 1, 22, 9], device=d)), 5, 2)
+        tie_tile = tiles.repeat_interleave(per)
+        tie_ci = torch.stack([(tie_tile // 8) * 8 + 3, (tie_tile % 8) * 8 + 4],
+                             1)
+        ties = bh._tile_select(tie_ci, torch.ones_like(tie_tile, dtype=bool),
+                               6, 8, T, radius)
+        out[d.type] = [x.cpu() for x in (ci_f, b_par, tid, tile_slot, orig,
+                                         cand, sidx, count) + tuple(ties)]
+    assert int(out["cpu"][1].sum()) > 0 and int(out["cpu"][5].sum()) > 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
