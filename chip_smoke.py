@@ -85,8 +85,9 @@ Phases, each printing its own lines:
                 idle share, Simulation(SimConfig(n=1M, dim=3,
                 enable_collisions=False)) under 'auto' running 20 steps with
                 K1, K4 and K7 launched exactly once per step, and a 3D
-                Plummer sphere at N=131,072 raising NotImplementedError (it
-                needs the 3D deep-overflow chain, not ported);
+                Plummer sphere at N=131,072 under 'auto' resolving to the 3D
+                deep-overflow chain with tiles (with its warning) and
+                running 2 steps;
  10. deep     — Simulation(SimConfig(n=1,048,576), scene="uniform_disc")
                 under 'auto': the deep-overflow chain with its tiles (and
                 the warning that says so); the overflow, deep-path, refined
@@ -98,7 +99,22 @@ Phases, each printing its own lines:
                 10x the exact one on it); 1 warm-up step, then run(5) with
                 K1, K3 and K4 launched exactly once per step; K1, K3 and K4
                 at the deep path's shapes against their plain versions,
-                timed and bounded.
+                timed and bounded;
+ 11. deep3d   — Simulation(SimConfig(n=1,048,576, dim=3), scene="plummer")
+                under 'auto' (collisions on): the 3D deep-overflow chain
+                with its tiles and the dense near field; the same report as
+                phase 10 (shares, one eval timed whole and by stage with its
+                device idle share and peak memory, kernels vs plain route
+                with deterministic index_add_, vs exact K1 on 4096 rows with
+                the JAX tests' 3D bounds: median < 3e-2 off the deep path,
+                max|a| < 10x on it), 1 warm-up step, then run(3) with K1, K4
+                and K7 once per step; K1, K4 and K7 at its shapes against
+                their plain versions, timed and bounded. The 3D galaxy
+                merger at N=1M under 'auto' (the sparse near field, its
+                valid rows and sources printed): the same report, run(3)
+                with K1 and K4 once per step and no K7. The clustered blob
+                (scripts/bench3d_clustered.py's input, `scenes/blob.py`):
+                its resolution and one timed eval.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -1822,20 +1838,37 @@ def main() -> None:
     require(math.isfinite(ke3) and ke3 > 0, "3D tree path: bad kinetic energy")
     del sim3, st3, pos3, mass3
 
-    # What still raises: a Plummer sphere too clustered for the buckets.
+    # A Plummer sphere too clustered for the buckets: 'auto' turns the 3D
+    # deep-overflow chain on.
     pcfg = SimConfig(n=131_072, dim=3)
     plum = init_scene("plummer", pcfg, device=dev, virialize=False)
     over_pl = bh3.bh3_near_overflow(plum.pos, plum.mass, pcfg)
-    try:
-        resolve_config_for_state(plum.pos, plum.mass, pcfg)
-    except NotImplementedError as exc:
-        require("Queue A item 1 (3D)" in str(exc),
-                f"unexpected message: {exc}")
-        say("tree3d", f"plummer N=131072 dim=3 (overflow {over_pl}) under "
-            f"auto raises NotImplementedError: {exc}")
-    else:
-        fail("3D plummer N=131072 under auto did not raise; it needs the "
-             "deep-overflow chain")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        psim131 = Simulation(pcfg, state=plum)
+    c131 = psim131.config
+    lv131 = bh3._resolve_levels3(c131, pcfg.n)
+    dp131 = bh3._resolve_deep_levels3(c131, lv131)
+    tiles131 = bh3._resolve_tile_params3(c131, dp131,
+                                         bh3._resolve_radius3(c131))
+    say("tree3d", f"plummer N=131072 dim=3 (overflow {over_pl}) under auto: "
+        f"force_backend {c131.force_backend}, bh_deep_levels "
+        f"{c131.bh_deep_levels} (levels {lv131}, deep {dp131}), tiles "
+        f"(k, t, T) = {tiles131}, bh_nf_sparse {c131.bh_nf_sparse}, "
+        f"collisions {c131.collision_broad_phase}")
+    require((c131.force_backend, c131.bh_deep_levels, tiles131,
+             c131.bh_nf_sparse) == ("bh", -1, (3, 8, 8), 0)
+            and any("deep-overflow" in str(w.message) for w in caught),
+            "the N=131072 Plummer sphere did not resolve to the 3D deep "
+            "chain with tiles and the dense near field")
+    psim131.run(2)
+    torch.cuda.synchronize()
+    for name in ("pos", "vel", "acc"):
+        require(bool(torch.isfinite(getattr(psim131.state, name)).all()),
+                f"3D deep path N=131072: non-finite {name}")
+    say("tree3d", f"plummer N=131072: 2 steps, frame {psim131.frame}, state "
+        f"finite")
+    del psim131, plum
     say("tree3d", f"phase 9 took {time.perf_counter() - t_phase9:.1f} s")
 
     # -- 10. deep -------------------------------------------------------------
@@ -2154,6 +2187,410 @@ def main() -> None:
     del chain_d
     say("deep", f"phase 10 took {time.perf_counter() - t_phase10:.1f} s")
 
+    # -- 11. deep3d -----------------------------------------------------------
+    # Clustered 3D scenes at N = 1M under 'auto': the 3D deep-overflow chain
+    # with its tiles; the dense near field (K7) on the Plummer sphere and the
+    # clustered blob, the sparse near field on the 3D galaxy merger.
+    t_phase11 = time.perf_counter()
+    n_p = 1 << 20
+
+    def deep3_scene(label, sim, sparse):
+        """Resolution, shares, one eval timed whole and by stage (device busy
+        ms, idle share, peak memory), the kernels' route against the plain
+        one and against exact K1 forces. Returns the eval's intermediates
+        that the kernel checks use."""
+        cfg = sim.config
+        pos, mass = sim.state.pos, sim.state.mass
+        lv = bh3._resolve_levels3(cfg, n_p)
+        dp = bh3._resolve_deep_levels3(cfg, lv)
+        rad = bh3._resolve_radius3(cfg)
+        tk, tt, tc = bh3._resolve_tile_params3(cfg, dp, rad)
+        over = bh3.bh3_near_overflow(pos, mass, cfg)
+        tier = bh3.bh3_bucket_tier_count(pos, mass, cfg)
+        say("deep3d", f"{label} N={n_p} under auto: force_backend "
+            f"{cfg.force_backend}, bh_deep_levels {cfg.bh_deep_levels} "
+            f"(levels {lv}, deep {dp}, R {rad}), tiles (k, t, T) = "
+            f"{(tk, tt, tc)}, bh_nf_sparse {cfg.bh_nf_sparse}, collisions "
+            f"{cfg.collision_broad_phase}; bucket overflow {over} "
+            f"({100 * over / n_p:.2f}% of N), bucket-tier targets {tier}")
+        require(cfg.force_backend == "bh" and cfg.bh_deep_levels == -1
+                and (lv, dp, rad, (tk, tt, tc)) == (6, 8, 2, (3, 8, 8))
+                and cfg.bh_nf_sparse == int(sparse),
+                f"{label} did not resolve to the deep chain (levels 6, deep "
+                f"8, tiles (3, 8, 8), bh_nf_sparse {int(sparse)})")
+        eval_ = lambda: bh3.bh3_accelerations(pos, mass, cfg)  # noqa: E731
+        eval_()
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eval_()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        ev_ms = time_ms(eval_, 3, warmup=0)
+        rows_, busy = device_profile(lambda: [eval_() for _ in range(2)], 2)
+        say("deep3d", f"{label} eval: {ev_ms:.4f} ms through the kernels "
+            f"(CUDA events, 3 evals after 2); peak memory of one eval "
+            f"{peak_gb:.3f} GB above the {base_mem / 1e9:.3f} GB held; "
+            + (f"device busy {busy:.4f} ms per eval (torch.profiler, "
+               f"{2 * rows_:.0f} device rows over 2 evals): the device idles "
+               f"{100 * (1 - busy / ev_ms):.1f}%" if rows_ else
+               "device busy: not measured (no device rows)"))
+
+        # The eval's intermediates, each stage timed alone on its own inputs
+        # (as `_bh3_accelerations` and `_deep_chain3` compute them).
+        rr_, res_ = rad - 1, 1 << lv
+        ext = bh._extract_heavy_outliers(pos, mass)
+        oi = ext["out_i"]
+        opos_ = pos[oi]
+        k1_src = torch.where(ext["is_heavy"], 0.0, mass)
+        k4_src = torch.where(ext["out_sel"] & ~ext["is_heavy"][oi], mass[oi],
+                             0.0)
+        bulk, tm = ext["bulk_pos"], ext["tree_mass"]
+        grids, corner, size, ci_f, _ = bh3._build_pyramid3(
+            bulk, tm, dp, synth_quad=True)
+        ci = ci_f >> (dp - lv)
+        flat = (ci[:, 0] * res_ + ci[:, 1]) * res_ + ci[:, 2]
+        flat_nf = bh._outlier_flat_ids(flat, ext["is_out"], res_ ** 3)
+        terms = {v: bh3._m2l_level3(grids[v], corner, size, eps, rad)
+                 for v in range(2, dp + 1)}
+
+        def l2l(top):
+            local = terms[2]
+            for v in range(3, top + 1):
+                up = bh3._l2l_upsample3(local, size / (1 << v))
+                local = tuple(u + t for u, t in zip(up, terms[v]))
+            return local
+
+        lbucket, ldeep = l2l(lv), l2l(dp)
+        b_par, hot = bh3._deep_targets3(flat_nf, flat, ext["is_out"], res_,
+                                        cap, rad)
+        is_out = ext["is_out"]
+        sparse_args = (pos, bulk, tm, ci, flat, hot, b_par, is_out, eps, gc,
+                       rad)
+        n_cand = int((~b_par & ~is_out).sum())
+        n_src_nf = int((~hot[flat]).sum())
+        bk = None
+        if sparse:
+            _, b_par = bh3._sparse_near_field3(*sparse_args)
+        else:
+            bk = bh._bucket_grid(pos, tm, ci, flat_nf, res_, cap, rr_)
+        pay = bh3._moment_payload3(pos, tm)
+        g4p = torch.nn.functional.pad(torch.stack(grids[dp][:4], -1),
+                                      (0, 0) + (1,) * 6)
+        tid, ts, orig = bh3._tile_select3(ci_f, b_par, dp, tt, tc, rad)
+        cand = (ts[tid] < tc) & b_par
+        need = b_par & ~cand
+        n_bpar, n_ref, n_need = (int(b_par.sum()), int(cand.sum()),
+                                 int(need.sum()))
+        sd, _ = bh._compact_indices(need, bh3._deep_rows_cap3(n_p))
+        sd = torch.clamp(sd, max=n_p - 1)
+
+        def deep_rows():
+            far = bh3._l2p_eval3(ldeep, ci_f[sd], pos[sd], corner, size, dp)
+            near = bh3._deep_near_aggregates3(pos[sd], pay[sd, :4], g4p,
+                                              ci_f[sd], eps, size / (1 << dp),
+                                              rr=1)
+            return far, near
+
+        src = bh3._tile_src_mask3(ci_f, ts, dp, rad, tt, tc)
+        s_cap = bh3._scatter_cap3(n_p)
+        n_src = int(src.sum())
+        compact = n_src <= s_cap < n_p
+        ss, _ = bh._compact_indices(src, s_cap)
+        valid_s = ss < n_p
+        ss = torch.clamp(ss, max=n_p - 1)
+        sc_args = ((torch.where(valid_s[:, None], pay[ss], 0.0), bulk[ss],
+                    ci_f[ss]) if compact else (pay, bulk, ci_f))
+        sc_kw = {"src_mask": valid_s} if compact else {}
+        geo = (corner, size, dp, rad, tk, tt, tc)
+        m_rows = sc_args[0].shape[0]
+        cands = bh3._tile_candidates3(sc_args[2], ts, tt, tc, rad,
+                                      (1 << dp) // tt)
+        on_edge = cands[1][0]
+        for ok_, _ in cands[2:]:
+            on_edge = on_edge | ok_
+        if compact:
+            on_edge = on_edge & valid_s
+        n_edge, halo = int(on_edge.sum()), bh._halo_cap(m_rows)
+        g4k = bh3._tile_scatter3(*sc_args, ts, orig, *geo, **sc_kw)
+        lw = bh3._tile_windows3(ldeep, orig, tt, rad)
+        chain = bh3._tile_chain3(lw, g4k, orig, corner, size, dp, rad, eps,
+                                 tk, tt, tc)
+        ra, _ = bh._compact_indices(cand, bh3._refined_cap3(n_p))
+        ra = torch.clamp(ra, max=n_p - 1)
+
+        def apply_():
+            return bh3._tile_apply3(pos[ra], pay[ra], bulk[ra], ci_f[ra],
+                                    b_par[ra], chain, g4k, ts, orig, corner,
+                                    size, dp, rad, eps, tk, tt, tc)
+
+        say("deep3d", f"{label}: deep-path targets {n_bpar} "
+            f"({100 * n_bpar / n_p:.2f}% of N), refined by the tiles {n_ref} "
+            f"({100 * n_ref / n_p:.2f}%), deep rows {n_need} (cap "
+            f"{bh3._deep_rows_cap3(n_p)}), tile sources {n_src} (cap {s_cap}: "
+            f"{'compacted' if compact else 'all rows'}), halo sources on an "
+            f"edge {n_edge} against the halo cap {halo} of {m_rows} rows "
+            f"({max(0, n_edge - halo)} dropped)"
+            + (f"; sparse near field: {min(n_cand, bh3._nf_sparse_cap(n_p))} "
+               f"valid target rows of {n_cand} bucket-tier targets (cap "
+               f"{bh3._nf_sparse_cap(n_p)}), {n_src_nf} non-hot-cell "
+               f"sources (cap {bh3._nf_sparse_src_cap(n_p)})"
+               if sparse else ""))
+        require(n_bpar > 0 and n_ref > 0, f"{label}: the deep chain selected "
+                f"no target")
+        stages = {
+            "couplings: extraction": time_ms(
+                lambda: bh._extract_heavy_outliers(pos, mass), 3),
+            "couplings: heavy": time_ms(lambda: bh.heavy_coupling(
+                pos, ext["h_pos"], ext["h_mass"], eps, gc), 3),
+            "couplings: K1 outliers <- all": time_ms(
+                lambda: allpairs_accelerations(
+                    opos_, None, eps_sq=eps, g_const=gc, src_pos=pos,
+                    src_mass=k1_src), 5),
+            "couplings: K4 bulk <- outliers": time_ms(
+                lambda: allpairs_accelerations_wide(
+                    pos, opos_, k4_src, eps_sq=eps, g_const=gc), 5),
+            f"pyramid (synthesized, to level {dp})": time_ms(
+                lambda: bh3._build_pyramid3(bulk, tm, dp, synth_quad=True),
+                2),
+        }
+        for v in range(2, dp + 1):
+            stages[f"M2L level {v} ({1 << v}^3)"] = time_ms(
+                lambda: bh3._m2l_level3(grids[v], corner, size, eps, rad), 2)
+        stages.update({
+            f"L2L to level {dp}": time_ms(lambda: l2l(dp), 2),
+            "L2P (bucket level)": time_ms(lambda: bh3._l2p_eval3(
+                lbucket, ci, pos, corner, size, lv), 3),
+            "deep targets": time_ms(lambda: bh3._deep_targets3(
+                flat_nf, flat, is_out, res_, cap, rad), 3),
+        })
+        if sparse:
+            stages["sparse near field"] = time_ms(
+                lambda: bh3._sparse_near_field3(*sparse_args), 3)
+        else:
+            nacc = bucket_stencil3(*bk.grid, counts=bk.counts, rr=rr_,
+                                   eps_sq=eps, center_rows=res_)
+            stages.update({
+                "sort and bucket scatter": time_ms(lambda: bh._bucket_grid(
+                    pos, tm, ci, flat_nf, res_, cap, rr_), 3),
+                "K7 near field": time_ms(lambda: bucket_stencil3(
+                    *bk.grid, counts=bk.counts, rr=rr_, eps_sq=eps,
+                    center_rows=res_), 10),
+                "bucket gather": time_ms(
+                    lambda: bh._bucket_gather(bk, nacc, res_, cap), 3),
+            })
+        stages.update({
+            "deep rows (L2P + 27 aggregates)": time_ms(deep_rows, 2),
+            "tile select": time_ms(lambda: bh3._tile_select3(
+                ci_f, b_par, dp, tt, tc, rad), 3),
+            "tile windows": time_ms(lambda: bh3._tile_windows3(
+                ldeep, orig, tt, rad), 3),
+            "tile scatter": time_ms(lambda: bh3._tile_scatter3(
+                *sc_args, ts, orig, *geo, **sc_kw), 3),
+            "tile chain": time_ms(lambda: bh3._tile_chain3(
+                lw, g4k, orig, corner, size, dp, rad, eps, tk, tt, tc), 2),
+            "tile apply": time_ms(apply_, 2),
+        })
+        for name, ms in stages.items():
+            say("deep3d", f"  {label} stage {name}: {ms:.4f} ms "
+                f"({100 * ms / ev_ms:.1f}% of the eval)")
+        say("deep3d", f"  {label} stages sum to {sum(stages.values()):.4f} ms "
+            f"against the eval's {ev_ms:.4f}")
+        if not sparse:
+            # Not on this path: the sparse near field on these inputs, the
+            # plain cell-masked pairwise pass at its 16384-target cap.
+            n_tgt_nf = min(n_cand, bh3._nf_sparse_cap(n_p))
+            n_src_used = (n_src_nf if n_src_nf <= bh3._nf_sparse_src_cap(n_p)
+                          else n_p)
+            nf_ms = time_ms(lambda: bh3._sparse_near_field3(*sparse_args),
+                            1)
+            say("deep3d", f"  {label}: the sparse near field (not on this "
+                f"path) on its {n_tgt_nf} target rows x {n_src_used} "
+                f"sources: {nf_ms:.4f} ms")
+
+        # Through the kernels against the plain route, index_add_
+        # deterministic (as in phase 10).
+        a_k = eval_()
+        a_p, plain_ms_ = timed(lambda: bh3.bh3_accelerations(
+            pos, mass, cfg, use_kernels=False))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                a_kd = eval_()
+                a_pd = bh3.bh3_accelerations(pos, mass, cfg,
+                                             use_kernels=False)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        err = float((a_kd - a_pd).abs().max())
+        scale = float(a_pd.abs().max())
+        ok = (bool(torch.isfinite(a_k).all())
+              and bool(torch.isfinite(a_p).all()) and err <= 1e-5 * scale)
+        say("deep3d", f"{label} eval kernels vs plain route (deterministic "
+            f"index_add_): max_abs_err={err:.3e} max|a|={scale:.3e} "
+            f"tol={1e-5 * scale:.3e} {'ok' if ok else 'FAIL'}; without it the "
+            f"routes differ by {float((a_k - a_p).abs().max()):.3e}; the "
+            f"plain route took {plain_ms_:.4f} ms")
+        require(ok, f"{label} deep eval through the kernels disagrees with "
+                f"the plain route")
+        del a_kd, a_pd, a_p
+        rows = torch.randperm(n_p, generator=gen, device=dev)[:4096]
+        exact = allpairs_accelerations(pos[rows], None, eps_sq=eps,
+                                       g_const=gc, src_pos=pos,
+                                       src_mass=mass)
+        rel = ((a_k[rows] - exact).norm(dim=1)
+               / (exact.norm(dim=1) + 1e-12))
+        on = b_par[rows]
+        off = rel[~on].sort().values
+        on_rel = rel[on].sort().values
+        med_off = float(off[len(off) // 2]) if len(off) else 0.0
+        amax_on = float(a_k[rows][on].norm(dim=1).max()) if len(
+            on_rel) else 0.0
+        emax = float(exact.norm(dim=1).max())
+        ok = med_off < 3e-2 and amax_on < 10.0 * emax
+        say("deep3d", f"{label} vs exact K1 on 4096 rows: {len(off)} rows off "
+            f"the deep path, median relative error "
+            + (f"{med_off:.4e}" if len(off) else "none")
+            + f" (bound < 3e-2); {len(on_rel)} deep-path rows, median "
+            + (f"{float(on_rel[len(on_rel) // 2]):.4e}, 99th percentile "
+               f"{float(on_rel[int(0.99 * (len(on_rel) - 1))]):.4e}"
+               if len(on_rel) else "none")
+            + f", max|a| {amax_on:.4e} against the exact {emax:.4e} (bound "
+            f"< 10x) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label} deep eval too far from the exact forces")
+        # K1, K4 and K7 at the deep path's shapes: against the plain
+        # versions, timed, bounded.
+        nout = opos_.shape[0]
+        errs = {
+            "K1": rect_case(
+                f"K1 3D deep chain ({label}) outliers <- all "
+                f"[{nout} x {n_p}]",
+                lambda t, sp, sm: allpairs_accelerations(
+                    t, None, eps_sq=eps, g_const=gc, src_pos=sp,
+                    src_mass=sm), opos_, pos, k1_src),
+            "K4": rect_case(
+                f"K4 3D deep chain ({label}) bulk <- outliers "
+                f"[{n_p} x {nout}]",
+                lambda t, sp, sm: allpairs_accelerations_wide(
+                    t, sp, sm, eps_sq=eps, g_const=gc), pos, opos_, k4_src),
+        }
+        kern = {
+            "K1": (stages["couplings: K1 outliers <- all"], time_ms(
+                lambda: allpairs_accelerations_plain(
+                    opos_, None, eps_sq=eps, g_const=gc, src_pos=pos,
+                    src_mass=k1_src), 2),
+                   *pair_bound3(float(n_p) * nout,
+                                4.0 * (4 * n_p + 6 * nout))),
+            "K4": (stages["couplings: K4 bulk <- outliers"], time_ms(
+                lambda: allpairs_accelerations_plain(
+                    pos, None, eps_sq=eps, g_const=gc, src_pos=opos_,
+                    src_mass=k4_src), 2),
+                   *pair_bound3(float(n_p) * nout,
+                                4.0 * (6 * n_p + 4 * nout))),
+        }
+        if not sparse:
+            errs["K7"] = near_case(
+                "deep3d", f"the N=1M {label}'s grid {res_}^3 x {cap}, "
+                f"rr={rr_}", bk.grid, bk.counts, eps, res_, rr_)
+            pairs, issued, _ = near_pairs(bk.counts, res_, rr_, cap)
+            nbytes = 4.0 * (4 * float(bk.counts.sum()) + bk.counts.numel()
+                            + 3 * res_ ** 3 * cap)
+            kern["K7"] = (stages["K7 near field"], time_ms(
+                lambda: bucket_stencil3_plain(*bk.grid, rr_, eps, res_), 2),
+                *pair_bound3(pairs, nbytes))
+            say("deep3d", f"K7 on the {label}'s grid: {pairs:.4e} occupied "
+                f"pairs needed, {issued:.4e} lane-pairs issued (a model "
+                f"estimate)")
+        for name, (ms, plain_ms_, bnd, by) in kern.items():
+            say("deep3d", f"{name} at the 3D deep path's shape ({label}): "
+                f"kernel {ms:.4f} ms, plain {plain_ms_:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+        del a_k, exact, terms, lbucket, chain, g4k, grids, bk
+        return errs, kern
+
+    def deep3_run(label, sim, k7_per_step):
+        sim.run(1)
+        torch.cuda.synchronize()
+        for c in counted + (bucket_stencil3,):
+            c.launches = 0
+        start.record()
+        sim.run(3)
+        end.record()
+        torch.cuda.synchronize()
+        got = {"K1": allpairs_accelerations.launches,
+               "K4": allpairs_accelerations_wide.launches,
+               "K7": bucket_stencil3.launches,
+               "K5": rect_pair_deltas.launches,
+               "K6": block_collision_deltas.launches}
+        sps = 3 / (start.elapsed_time(end) / 1e3)
+        say("deep3d", f"launches during run(3) of the {label}: {got}; "
+            f"{sps:.4f} steps/s (CUDA events, after 1 warm-up step)")
+        require(got["K1"] == got["K4"] == 3 and got["K7"] == 3 * k7_per_step,
+                f"{label} kernel launches {got}: expected K1 and K4 once per "
+                f"step, K7 {k7_per_step} per step")
+        require(sim.frame == 4, f"frame {sim.frame}, expected 4")
+        for name in ("pos", "vel", "acc"):
+            require(bool(torch.isfinite(getattr(sim.state, name)).all()),
+                    f"{label} deep path: non-finite {name}")
+        return got
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        psim = Simulation(SimConfig(n=n_p, dim=3), scene="plummer",
+                          virialize=False)
+    require(any("deep-overflow" in str(w.message) for w in caught),
+            "the N=1M Plummer sphere resolved without the deep-overflow "
+            "warning")
+    pl_errs, deep3_k = deep3_scene("Plummer sphere", psim, sparse=False)
+    pl_launches = deep3_run("Plummer sphere", psim, 1)
+    del psim
+
+    # The 3D galaxy merger: the sparse near field, no K7.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        msim3 = Simulation(SimConfig(n=n_p, dim=3), scene="galaxy_merger")
+    require(any("deep-overflow" in str(w.message) for w in caught),
+            "the N=1M 3D merger resolved without the deep-overflow warning")
+    deep3_scene("3D merger", msim3, sparse=True)
+    deep3_run("3D merger", msim3, 0)
+    del msim3
+
+    # The clustered blob (scripts/bench3d_clustered.py's input), one eval:
+    # ROADMAP Queue A item 5's measurement.
+    from nbodysim_tpu_torch.scenes.blob import clustered_blob
+
+    bpos, bmass = clustered_blob(n_p, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        bcfg = resolve_config_for_state(bpos, bmass, SimConfig(n=n_p, dim=3))
+    blv = bh3._resolve_levels3(bcfg, n_p)
+    bdp = bh3._resolve_deep_levels3(bcfg, blv)
+    btiles = bh3._resolve_tile_params3(bcfg, bdp, bh3._resolve_radius3(bcfg))
+    require((bcfg.force_backend, bcfg.bh_deep_levels, bcfg.bh_nf_sparse,
+             bdp, btiles) == ("bh", -1, 0, 8, (3, 8, 8)),
+            f"the blob resolved to {bcfg.force_backend}, deep "
+            f"{bcfg.bh_deep_levels}, sparse {bcfg.bh_nf_sparse}")
+    blob_eval = lambda: bh3.bh3_accelerations(bpos, bmass, bcfg)  # noqa
+    blob_eval()
+    blob_ms = time_ms(blob_eval, 3, warmup=1)
+    a_b = blob_eval()
+    rows_b = torch.randperm(n_p, generator=gen, device=dev)[:4096]
+    exact_b = allpairs_accelerations(bpos[rows_b], None, eps_sq=eps,
+                                     g_const=gc, src_pos=bpos, src_mass=bmass)
+    rel_b = ((a_b[rows_b] - exact_b).norm(dim=1)
+             / (exact_b.norm(dim=1) + 1e-12)).sort().values
+    require(bool(torch.isfinite(a_b).all()), "blob eval: non-finite")
+    say("deep3d", f"clustered blob N={n_p} (sigma 40 in +-30000) under auto: "
+        f"deep {bdp}, tiles {btiles}, bucket overflow "
+        f"{bh3.bh3_near_overflow(bpos, bmass, bcfg)}, bucket-tier targets "
+        f"{bh3.bh3_bucket_tier_count(bpos, bmass, bcfg)}; one eval "
+        f"{blob_ms:.4f} ms (CUDA events, 3 evals after 2); vs exact K1 on "
+        f"4096 rows: median relative error {float(rel_b[2048]):.4e}, 99th "
+        f"percentile {float(rel_b[4055]):.4e}")
+    del a_b, bpos, bmass
+    say("deep3d", f"phase 11 took {time.perf_counter() - t_phase11:.1f} s")
+
     n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
     k2_bound, k2_by = bound(4.0 * n25 * (2 + 2 + 1 + 1 + 2 + 2),
@@ -2234,6 +2671,19 @@ def main() -> None:
               f"{nout_d})", allpairs_cu,
               "nbodysim_tpu/kernels/allpairs.py:105", d_launches["K4"],
               k4_deep_err, *deep_k["K4"][:2], deep_k["K4"][2:]),
+        entry(f"K1 allpairs_accelerations (3D deep chain, N=1M Plummer "
+              f"sphere: 4096 outliers <- 1M, D=3)", allpairs_cu,
+              "nbodysim_tpu/kernels/allpairs.py:56", pl_launches["K1"],
+              pl_errs["K1"], *deep3_k["K1"][:2], deep3_k["K1"][2:]),
+        entry(f"K4 allpairs_accelerations_wide (3D deep chain, N=1M Plummer "
+              f"sphere: 1M x 4096, D=3)", allpairs_cu,
+              "nbodysim_tpu/kernels/allpairs.py:105", pl_launches["K4"],
+              pl_errs["K4"], *deep3_k["K4"][:2], deep3_k["K4"][2:]),
+        entry(f"K7 bucket_stencil3 (3D deep chain, N=1M Plummer sphere: "
+              f"64^3 x {cap}, rr=1)",
+              "nbodysim_tpu_torch/csrc/nearfield3.cu",
+              "nbodysim_tpu/kernels/nearfield.py:262", pl_launches["K7"],
+              pl_errs["K7"], *deep3_k["K7"][:2], deep3_k["K7"][2:]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -67,8 +67,8 @@ class Simulation:
         else:
             state = state.to(self.device)
         # Pin 'auto' backends to the concrete ones for this device and N
-        # (the 2D deep chain switched on where the buckets overflow); what
-        # is not ported yet raises here, before any step.
+        # (the tree's deep chain switched on where the buckets overflow);
+        # what is not ported yet raises here, before any step.
         self.config = resolve_config_for_state(
             state.pos, state.mass, self.config)
         self.config = resolve_collision_phase_for_state(state, self.config)
@@ -102,9 +102,8 @@ class Simulation:
                     f"BH near-field overflow {over} exceeds the residual "
                     f"capacity {_OVERFLOW_CAP} on {when}; excess particles "
                     f"get no near-field force. Set bh_deep_levels=-1 (the "
-                    f"deep-overflow chain; 2D only, the 3D chain is not "
-                    f"ported yet), or use force_backend='cuda' for this "
-                    f"scene.", RuntimeWarning)
+                    f"deep-overflow chain), or use force_backend='cuda' for "
+                    f"this scene.", RuntimeWarning)
         if not cfg.enable_collisions:
             return exceeded
         cap = collisions._OVERFLOW_CAP

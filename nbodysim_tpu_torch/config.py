@@ -76,9 +76,8 @@ class SimConfig:
     force_block_sources: int = 2048
 
     # Tree code (force_backend="bh"): 2D quadtree and 3D octree, with the
-    # 2D deep-overflow chain (bh_deep_levels != 0) and its tiles. The 3D
-    # chain and sparse near field are not ported yet (ROADMAP Queue A item
-    # 1 (3D)); their fields are kept so configurations carry across.
+    # deep-overflow chain (bh_deep_levels != 0), its hot-zone tiles
+    # (bh_tile_*) and, in 3D, the sparse near field (bh_nf_sparse).
     bh_levels: int = 0
     bh_accept_radius: int = 0
     bh_deep_levels: int = 0

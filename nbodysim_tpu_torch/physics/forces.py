@@ -13,10 +13,10 @@ with the self/coincident term skipped (reference Quadtree.hpp:124).
     automatic from N = 100k: the quadtree of physics/barneshut.py in 2D,
     the octree of physics/barneshut3d.py in 3D), per `force_backend`.
 
-What is not ported raises NotImplementedError and never falls back to
-another force law silently: the 3D tree code's deep-overflow chain
-(ROADMAP Queue A item 1 (3D)), which the JAX package switches on for 3D
-scenes too clustered for the near-field buckets.
+`resolve_config_for_state` pins 'auto' from the state, as the JAX
+package's does: past the near-field buckets' residual capacity it turns on
+the tree's deep-overflow chain (2D and 3D), and in 3D it pins the sparse
+near field (`bh_nf_sparse`) from the bucket-tier target count.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from nbodysim_tpu_torch.kernels.allpairs import (
 from nbodysim_tpu_torch.physics.barneshut import (
     _OVERFLOW_CAP, bh_accelerations, bh_near_overflow)
 from nbodysim_tpu_torch.physics.barneshut3d import (
-    _resolve_deep_levels3, _resolve_levels3, bh3_near_overflow)
+    _NF_SPARSE_CAP, _resolve_deep_levels3, _resolve_levels3,
+    bh3_bucket_tier_count, bh3_near_overflow)
 
 # Exact/tree crossovers of the JAX package (forces.py:205,210).
 BH_AUTO_THRESHOLD = 100_000
@@ -120,12 +121,10 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     actual particles once (`bh_near_overflow`, `bh3_near_overflow` in 3D)
     and pin `bh_nf_sparse` (`_resolve_nf_sparse`). Where the overflow
     exceeds the exact residual's capacity, the scene is too clustered for
-    the buckets alone: in 2D this warns (RuntimeWarning) and turns on the
-    deep-overflow chain and its tiles (bh_deep_levels=-1), as the JAX
-    package does; the 3D chain is ROADMAP Queue A item 1 (3D), so 3D
-    raises NotImplementedError rather than run the tree without it. An
-    explicit force_backend='bh' keeps the user's choice (with the capacity
-    warning of `api.Simulation.check_capacity`)."""
+    the buckets alone: this warns (RuntimeWarning) and turns on the
+    deep-overflow chain and its tiles (bh_deep_levels=-1), in 2D and 3D, as
+    the JAX package does. An explicit force_backend='bh' keeps the user's
+    choice (with the capacity warning of `api.Simulation.check_capacity`)."""
     n, dim = pos.shape[0], pos.shape[1]
     backend = resolve_backend(config, n, dim, pos.device)
     if backend != "bh" or config.force_backend != "auto":
@@ -133,13 +132,6 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     probe = bh3_near_overflow if dim == 3 else bh_near_overflow
     over = probe(pos, mass, config)
     if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
-        if dim == 3:
-            raise NotImplementedError(
-                f"auto force backend: near-field overflow {over} exceeds "
-                f"the exact-residual capacity {_OVERFLOW_CAP}; this scene "
-                f"needs the 3D tree code's deep-overflow chain, which is "
-                f"ROADMAP Queue A item 1 (3D) and not ported yet. Set "
-                f"force_backend='cuda' for exact forces.")
         warnings.warn(
             f"auto force backend: near-field overflow {over} exceeds the "
             f"exact-residual capacity {_OVERFLOW_CAP}; enabling the "
@@ -150,24 +142,22 @@ def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
         # bh_tile_levels defaults to -1 (on with the deep chain); an
         # explicit 0 keeps tiles off.
         config = config.replace(bh_deep_levels=-1)
-    return _resolve_nf_sparse(pos, config.replace(force_backend="bh"))
+    return _resolve_nf_sparse(pos, mass, config.replace(force_backend="bh"))
 
 
-def _resolve_nf_sparse(pos, config: SimConfig) -> SimConfig:
+def _resolve_nf_sparse(pos, mass, config: SimConfig) -> SimConfig:
     """Pin bh_nf_sparse = -1 (auto) to 0 or 1, as the JAX package's
     `_resolve_nf_sparse` does: 0 in 2D, and 0 in 3D whenever the deep chain
-    is off. With the 3D deep chain on, the JAX package counts the
-    bucket-tier targets (`bh3_bucket_tier_count`); that branch is ROADMAP
-    Queue A item 1 (3D) and raises here."""
+    is off; with the 3D deep chain on, 1 when the bucket-tier targets
+    (`bh3_bucket_tier_count`) fit half the sparse pass's capacity."""
     if config.bh_nf_sparse != -1:
         return config
-    if pos.shape[1] == 3 and _resolve_deep_levels3(
+    if pos.shape[1] != 3 or not _resolve_deep_levels3(
             config, _resolve_levels3(config, pos.shape[0])):
-        raise NotImplementedError(
-            "bh_nf_sparse=-1 with the 3D deep-overflow chain on needs the "
-            "sparse near field's bucket-tier probe, which is ROADMAP Queue A "
-            "item 1 (3D) and not ported yet")
-    return config.replace(bh_nf_sparse=0)
+        return config.replace(bh_nf_sparse=0)
+    count = bh3_bucket_tier_count(pos, mass, config)
+    return config.replace(
+        bh_nf_sparse=1 if count <= _NF_SPARSE_CAP // 2 else 0)
 
 
 def compute_accelerations(

@@ -24,6 +24,7 @@ from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu.physics.integrators import make_step as jax_make_step
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu_torch.physics import barneshut as tb
+from nbodysim_tpu_torch.physics import barneshut3d as tb3
 from nbodysim_tpu_torch.physics import forces as tforces
 
 from _torch_helpers import CPU, as_np, as_t, rand_system, to_port
@@ -276,9 +277,9 @@ def test_resolve_config_for_state_agrees_on_the_deep_chain(n_hot):
 
 
 def test_explicit_bh_overflow_warns_and_deep_chain_raises():
-    """An explicit "bh" past the residual's cap warns; the 2D deep chain
-    runs and matches the JAX package on a small system; the 3D chain is
-    ROADMAP Queue A item 1 (3D) and raises."""
+    """An explicit "bh" past the residual's cap warns; the deep chain runs
+    and matches the JAX package on a small system, in 2D and (without
+    tiles, which keeps JAX's compile short) in 3D."""
     n = 40_000
     pos, mass = _clustered(n, 30_000, seed=11)
     state = nt.ParticleState.create(as_t(pos), torch.zeros(n, 2), as_t(mass))
@@ -293,13 +294,21 @@ def test_explicit_bh_overflow_warns_and_deep_chain_raises():
                                         bh_deep_levels=-1))
     assert bool(torch.isfinite(acc).all())
     _close(acc, ref)
-    # 3D: the octree runs; its deep chain raises.
+    # 3D: the octree runs, and so does its deep chain.
     pos3, mass3 = rand_system(64, dim=3)
     acc3 = tb.bh_accelerations(as_t(pos3), as_t(mass3), cfg.replace(dim=3))
     assert acc3.shape == (64, 3) and bool(torch.isfinite(acc3).all())
-    with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
-        tb.bh_accelerations(as_t(pos3), as_t(mass3),
-                            cfg.replace(dim=3, bh_deep_levels=-1))
+    # 40 of the 64 bodies in one level-2 cell: past its 16 slots.
+    pos3[:40] = 0.01 * pos3[:40] + 100.0
+    deep3 = dict(dim=3, bh_deep_levels=-1, bh_tile_levels=0)
+    assert tb3.bh3_near_overflow(as_t(pos3), as_t(mass3),
+                                 cfg.replace(n=64, dim=3)) > 0
+    acc3 = tb.bh_accelerations(as_t(pos3), as_t(mass3), cfg.replace(
+        n=64, **deep3))
+    ref3 = jb.bh_accelerations(jnp.asarray(pos3), jnp.asarray(mass3),
+                               JaxConfig(n=64, force_backend="bh", **deep3))
+    assert bool(torch.isfinite(acc3).all())
+    _close(acc3, ref3)
 
 
 @pytest.mark.parametrize("cfg", [

@@ -277,10 +277,11 @@ def _scene(kind):
 @pytest.mark.parametrize("kind", ["spread", "clump"])
 def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
     """'auto' picks the octree from BH3_AUTO_THRESHOLD; where the JAX
-    package turns the deep-overflow chain on (overflow > _OVERFLOW_CAP), the
-    port raises naming ROADMAP Queue A item 1 (3D). Both thresholds are
-    patched small, as
-    tests/test_barneshut3d.py does."""
+    package turns the deep-overflow chain on (overflow > _OVERFLOW_CAP), so
+    does the port, with the same warning, and both pin the same
+    (force_backend, bh_deep_levels, bh_nf_sparse); Simulation builds with
+    it. Both thresholds are patched small, as tests/test_barneshut3d.py
+    does."""
     monkeypatch.setattr(jforces, "BH3_AUTO_THRESHOLD", 256)
     monkeypatch.setattr(jb, "_OVERFLOW_CAP", 64)
     monkeypatch.setattr(tforces, "BH3_AUTO_THRESHOLD", 256)
@@ -296,25 +297,32 @@ def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
     assert over == jb3.bh3_near_overflow(jnp.asarray(pos), jnp.asarray(mass),
                                          JaxConfig(n=512, dim=3,
                                                    bh_levels=3))
+    fields = ("force_backend", "bh_deep_levels", "bh_nf_sparse")
     if kind == "clump":
         assert jcfg.bh_deep_levels != 0 and over > 64
-        with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
-            tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
-        with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
-            nt.Simulation(cfg, state=nt.ParticleState.create(
+        with pytest.warns(RuntimeWarning, match="deep-overflow"):
+            got = tforces.resolve_config_for_state(as_t(pos), as_t(mass),
+                                                   cfg)
+        with pytest.warns(RuntimeWarning, match="deep-overflow"):
+            sim = nt.Simulation(cfg, state=nt.ParticleState.create(
                 as_t(pos), torch.zeros(512, 3), as_t(mass)), device=CPU)
-        return
-    got = tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
-    assert (got.force_backend, got.bh_deep_levels, got.bh_nf_sparse) == (
-        jcfg.force_backend, jcfg.bh_deep_levels, jcfg.bh_nf_sparse) == (
-        "bh", 0, 0)
+        assert tuple(getattr(sim.config, f) for f in fields) == tuple(
+            getattr(jcfg, f) for f in fields)
+        assert sim.check_capacity() is False
+    else:
+        got = tforces.resolve_config_for_state(as_t(pos), as_t(mass), cfg)
+        assert (got.force_backend, got.bh_deep_levels, got.bh_nf_sparse) == (
+            "bh", 0, 0)
+    assert tuple(getattr(got, f) for f in fields) == tuple(
+        getattr(jcfg, f) for f in fields)
 
 
 def test_nf_sparse_resolution_matches_jax(monkeypatch):
-    """The JAX package pins bh_nf_sparse = -1 to 0 in 2D
-    (`_resolve_nf_sparse`); so does the port. An explicit value is kept;
-    with the 3D deep chain on, the sparse near field's probe is ROADMAP
-    Queue A item 1 (3D)."""
+    """The JAX package pins bh_nf_sparse = -1 to 0 in 2D and in 3D without
+    the deep chain (`_resolve_nf_sparse`); with the 3D deep chain on it
+    counts the bucket-tier targets (`bh3_bucket_tier_count`) and pins 1
+    when they fit half the sparse pass's capacity. So does the port; an
+    explicit value is kept."""
     monkeypatch.setattr(jforces, "BH_AUTO_THRESHOLD", 256)
     monkeypatch.setattr(tforces, "BH_AUTO_THRESHOLD", 256)
     pos, mass = rand_system(1024)
@@ -325,13 +333,25 @@ def test_nf_sparse_resolution_matches_jax(monkeypatch):
     assert nt.SimConfig().bh_nf_sparse == -1
     assert (got.force_backend, got.bh_nf_sparse) == (
         jcfg.force_backend, jcfg.bh_nf_sparse) == ("bh", 0)
-    pos3 = as_t(rand_system(64, dim=3)[0])
+    p3, m3 = rand_system(64, dim=3)
+    pos3, mass3 = as_t(p3), as_t(m3)
     cfg3 = nt.SimConfig(n=64, dim=3, force_backend="bh")
-    assert tforces._resolve_nf_sparse(pos3, cfg3).bh_nf_sparse == 0
+    jcfg3 = JaxConfig(n=64, dim=3, force_backend="bh")
+    assert tforces._resolve_nf_sparse(pos3, mass3, cfg3).bh_nf_sparse == 0
     assert tforces._resolve_nf_sparse(
-        pos3, cfg3.replace(bh_nf_sparse=1)).bh_nf_sparse == 1
-    with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
-        tforces._resolve_nf_sparse(pos3, cfg3.replace(bh_deep_levels=-1))
+        pos3, mass3, cfg3.replace(bh_nf_sparse=1)).bh_nf_sparse == 1
+    # The deep chain on: the port's pin equals JAX's, where the bucket
+    # tier fits the sparse pass (the default cap) and where it does not (a
+    # cap of 16).
+    for cap in (jb3._NF_SPARSE_CAP, 16):
+        monkeypatch.setattr(jb3, "_NF_SPARSE_CAP", cap)
+        monkeypatch.setattr(tforces, "_NF_SPARSE_CAP", cap)
+        got = tforces._resolve_nf_sparse(
+            pos3, mass3, cfg3.replace(bh_deep_levels=-1)).bh_nf_sparse
+        ref = jforces._resolve_nf_sparse(
+            jnp.asarray(p3), jnp.asarray(m3),
+            jcfg3.replace(bh_deep_levels=-1)).bh_nf_sparse
+        assert got == ref == (1 if cap > 16 else 0)
 
 
 @pytest.mark.parametrize("n,cfg", [
@@ -339,15 +359,16 @@ def test_nf_sparse_resolution_matches_jax(monkeypatch):
     (50_000, {"theta": 0.3}), (50_000, {"bh_accept_radius": 7}),
     (50_000, {"bh_deep_levels": -1}), (50_000, {"bh_deep_levels": 12})])
 def test_resolved_octree_parameters_match_jax(n, cfg):
-    """Levels, radius and deep-chain depth resolve as in the JAX package
-    (the last only describes what the 3D chain will run); N = 1M gives the
-    main
-    path's 64^3 cells at R = 2."""
+    """Levels, radius and deep-chain depth resolve as in the JAX package;
+    N = 1M gives the main path's 64^3 cells at R = 2."""
     tcfg, jcfg = nt.SimConfig(n=n, dim=3, **cfg), JaxConfig(n=n, dim=3, **cfg)
     levels = tb3._resolve_levels3(tcfg, n)
     assert levels == jb3._resolve_levels3(jcfg, n)
     assert tb3._resolve_radius3(tcfg) == jb3._resolve_radius3(jcfg)
-    assert tb3._resolve_deep_levels3(tcfg, levels) == \
-        jb3._resolve_deep_levels3(jcfg, levels)
+    deep = tb3._resolve_deep_levels3(tcfg, levels)
+    assert deep == jb3._resolve_deep_levels3(jcfg, levels)
+    radius = tb3._resolve_radius3(tcfg)
+    assert tb3._resolve_tile_params3(tcfg, deep, radius) == \
+        jb3._resolve_tile_params3(jcfg, deep, radius)
     if n == 1 << 20 and not cfg:
         assert (levels, tb3._resolve_radius3(tcfg)) == (6, 2)

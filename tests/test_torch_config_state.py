@@ -134,19 +134,14 @@ def test_cuda_backend_on_cpu_tensor_raises():
     ({}, 100_000, 3),
 ])
 def test_tree_code_raises_not_implemented(cfg, n_bodies, dim):
-    """The tree code is ported in 2D and 3D and resolves to "bh"; the 2D
-    deep-overflow chain runs, the 3D one (ROADMAP Queue A item 1 (3D))
-    raises."""
+    """The tree code is ported in 2D and 3D and resolves to "bh"; the
+    deep-overflow chain runs in both (finite forces)."""
     config = nt.SimConfig(dim=dim, **cfg)
     assert resolve_backend(config, n_bodies, dim, CPU) == "bh"
     deep = config.replace(force_backend="bh", bh_deep_levels=-1)
     pos = torch.rand(16, dim, generator=torch.Generator().manual_seed(dim))
-    if dim == 2:
-        acc = nt.compute_accelerations(pos, torch.ones(16), deep)
-        assert acc.shape == (16, 2) and bool(torch.isfinite(acc).all())
-        return
-    with pytest.raises(NotImplementedError, match=r"Queue A item 1 \(3D\)"):
-        nt.compute_accelerations(pos, torch.ones(16), deep)
+    acc = nt.compute_accelerations(pos, torch.ones(16), deep)
+    assert acc.shape == (16, dim) and bool(torch.isfinite(acc).all())
 
 
 def test_explicit_exact_backends_run_at_any_n():

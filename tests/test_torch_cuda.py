@@ -804,6 +804,42 @@ def test_deep_chain_runs_through_the_kernels(dev):
     assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("nf_sparse", [0, 1])
+def test_deep3d_chain_runs_through_the_kernels(dev, nf_sparse):
+    """The 3D deep chain with tiles on a clustered blob at N = 65,536
+    (levels 5, deep 7), with the dense near field (K1, K4 and K7 once each)
+    and with the sparse one (K1 and K4 once, no K7), against the plain
+    route within 1e-5 * max|a|, index_add_ deterministic (as in 2D)."""
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
+    from nbodysim_tpu_torch.scenes.blob import clustered_blob
+
+    n = 65_536
+    pos, mass = clustered_blob(n, center=(500.0, -300.0, 200.0),
+                               span=2000.0, seed=3, device=dev)
+    cfg = nt.SimConfig(n=n, dim=3, force_backend="bh", bh_levels=5,
+                       bh_deep_levels=7, bh_nf_sparse=nf_sparse)
+    assert bh3._resolve_tile_params3(cfg, 7, bh3._resolve_radius3(cfg))[0]
+    assert bh3.bh3_near_overflow(pos, mass, cfg) > bh._OVERFLOW_CAP
+    for c in (allpairs_accelerations, allpairs_accelerations_wide,
+              bucket_stencil3):
+        c.launches = 0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            got = bh_accelerations(pos, mass, cfg)
+            ref = bh_accelerations(pos, mass, cfg, use_kernels=False)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (allpairs_accelerations.launches,
+            allpairs_accelerations_wide.launches,
+            bucket_stencil3.launches) == (1, 1, 1 - nf_sparse)
+    assert bool(torch.isfinite(got).all())
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
 def test_tile_selection_on_the_card_equals_the_cpu(dev):
     """Deep-path targets, tile selection (ties broken as lax.top_k does),
     the refined set and the compaction indices: integers, equal on the
