@@ -115,6 +115,30 @@ Phases, each printing its own lines:
                 with K1 and K4 once per step and no K7. The clustered blob
                 (scripts/bench3d_clustered.py's input, `scenes/blob.py`):
                 its resolution and one timed eval.
+ 12. surface  — the product surface through its entry points: `cli info`
+                (it names the card); `cli run` of the N=25k disc for 200
+                steps (--log-every 50 --checkpoint-every 100; K1 and K2
+                launched 200 times each), its HUD steps/s, then the run
+                resumed from its ckpt_0000100.npz to step 200, whose
+                checkpoint must equal the uninterrupted one bit for bit;
+                the sorted-hash pass (collision_broad_phase="hash") on the
+                2D and 3D N=1M galaxy mergers: its overflow and big bodies,
+                the pass timed (CUDA events, 5 after 2), every K5 launch of
+                one pass against the plain route's same call, the pass
+                through the kernels against collision_backend="torch"
+                (1e-5 * max(max|v|, 10)) and momentum (1e-5 of sum m|v|);
+                render_frame at 1200 x 900 on phase 10's N=1M disc in its
+                normal, performance and overlay modes, timed, each against
+                the CPU's frame of the same state (at most 0.1% of the
+                pixels more than 1 apart); render_rollout of 10 frames of
+                1 step into an AsyncFrameWriter with a numpy sink;
+                `nbodysim_tpu_torch.bench`'s default run and --config 1, 2
+                and 5 (config 5: the N=4M merger, forces only and with
+                collisions), their JSON lines printed; the drift gate
+                (Plummer N=4096, leapfrog, 10,000 steps: worst |dE/E| <=
+                1e-4); `profiling.trace` around 3 steps (a Chrome trace
+                with the device's kernels). Scratch files go to the
+                gitignored build/smoke12/.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -2183,6 +2207,7 @@ def main() -> None:
     for name, (ms, plain_ms_, bnd, by) in deep_k.items():
         say("deep", f"{name} at the deep path's shape: kernel {ms:.4f} ms, "
             f"plain {plain_ms_:.4f} ms, bound {bnd:.4f} ms ({by})")
+    disc1m = (dsim.state, dcfg)   # phase 12 renders it
     del dsim, bk_d, nacc_d, grids_d, terms_d, lbucket_d, ldeep_d, lagg_d
     del chain_d
     say("deep", f"phase 10 took {time.perf_counter() - t_phase10:.1f} s")
@@ -2591,6 +2616,249 @@ def main() -> None:
     del a_b, bpos, bmass
     say("deep3d", f"phase 11 took {time.perf_counter() - t_phase11:.1f} s")
 
+    # -- 12. surface ----------------------------------------------------------
+    # The product surface through the entry points a user calls: the CLI,
+    # checkpoints and resume, the hash broad phase, the renderer and
+    # render_rollout, the bench and its presets, the drift gate, a trace.
+    import contextlib
+    import io
+
+    from nbodysim_tpu_torch import bench as tbench
+    from nbodysim_tpu_torch import cli
+    from nbodysim_tpu_torch.diagnostics.profiling import trace
+    from nbodysim_tpu_torch.render.splat import RenderConfig, render_frame
+    from nbodysim_tpu_torch.render.video import (
+        AsyncFrameWriter, render_rollout)
+
+    t_phase12 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "smoke12"
+    if work.exists():
+        import shutil
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+
+    def captured(fn, *args):
+        """Run fn(*args), echo its standard output with a phase tag, and
+        return the output's lines."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(*args)
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            say("surface", f"| {line}")
+        return lines
+
+    info = captured(cli.main, ["info"])
+    require(any(line == f"name: {torch.cuda.get_device_name(0)}"
+                for line in info), "cli info did not name the card")
+
+    # cli run at N=25k: 200 steps uninterrupted, then resumed from step 100.
+    run_args = ["run", "--scene", "uniform_disc", "--n", "25000",
+                "--log-every", "50", "--checkpoint-every", "100"]
+    for c in (allpairs_accelerations, allpairs_collision_deltas):
+        c.launches = 0
+    t0 = time.perf_counter()
+    hud = captured(cli.main, run_args + [
+        "--steps", "200", "--checkpoint-dir", str(work / "a")])
+    cli_s = time.perf_counter() - t0
+    cli_launches = {"K1": allpairs_accelerations.launches,
+                    "K2": allpairs_collision_deltas.launches}
+    hud_sps = float(hud[-2 if "checkpoint" in hud[-1] else -1]
+                    .split("|")[-1].split()[0])
+    require(cli_launches == {"K1": 200, "K2": 200},
+            f"cli run launches {cli_launches}, expected 200 each")
+    captured(cli.main, run_args + [
+        "--steps", "200", "--checkpoint-dir", str(work / "b"),
+        "--resume", str(work / "a" / "ckpt_0000100.npz")])
+    import numpy as np
+    with np.load(work / "a" / "ckpt_0000200.npz") as za, \
+            np.load(work / "b" / "ckpt_0000200.npz") as zb:
+        differ = [k for k in ("pos", "vel", "acc", "mass", "radius", "frame")
+                  if not np.array_equal(za[k], zb[k])]
+    say("surface", f"cli run N=25k, 200 steps: HUD {hud_sps:.1f} steps/s "
+        f"(from the start, warm-up, diagnostics every 50 steps and "
+        f"checkpoints included; {cli_s:.2f} s wall) against "
+        f"Simulation.run's {steps_per_s:.1f} steps/s in phase 5; launches "
+        f"{cli_launches}; resumed from step 100, ckpt_0000200 "
+        f"{'equals the uninterrupted run bit for bit' if not differ else 'differs in ' + str(differ)}")
+    require(not differ, f"the resumed run's checkpoint differs in {differ}")
+
+    # The hash pass, explicit, on the N=1M mergers (2D and 3D): every K5
+    # launch of one pass through the kernels, recorded with its operands;
+    # the same pass through the plain versions, its calls timed.
+    def hash_case(dim):
+        st = init_scene("galaxy_merger", SimConfig(n=1 << 20, dim=dim))
+        g = own_generator(120 + dim)
+        st = st.replace(vel=st.vel + uniform(st.vel.shape, -5.0, 5.0, g))
+        cfg = SimConfig(n=1 << 20, dim=dim, collision_broad_phase="hash")
+        hg = coll._hash_grid(st.pos, st.radius, cfg)
+        over = int((~hg.in_win & ~hg.big_s).sum())
+        n_big = int(hg.bigs.big_sel.sum())
+        calls = {"cuda": [], "torch": []}
+        real = {"cuda": coll.rect_pair_deltas,
+                "torch": coll.rect_pair_deltas_plain}
+
+        def recorder(route):
+            def call(tgt, src, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real[route](tgt, src, **kw)
+                torch.cuda.synchronize()
+                calls[route].append((tgt, src, kw, out,
+                                     1e3 * (time.perf_counter() - t)))
+                return out
+            return call
+
+        coll.rect_pair_deltas = recorder("cuda")
+        coll.rect_pair_deltas_plain = recorder("torch")
+        try:
+            rect_pair_deltas.launches = 0
+            out = coll.resolve_collisions(st, cfg)
+            torch.cuda.synchronize()
+            k5_launched = rect_pair_deltas.launches
+            ref = coll.resolve_collisions(
+                st, cfg.replace(collision_backend="torch"))
+            torch.cuda.synchronize()
+        finally:
+            coll.rect_pair_deltas = real["cuda"]
+            coll.rect_pair_deltas_plain = real["torch"]
+        vmax = max(float(ref.vel.abs().max()), 10.0)
+        err = max(float((out.pos - ref.pos).abs().max()),
+                  float((out.vel - ref.vel).abs().max()))
+        p0 = (st.mass[:, None] * st.vel).sum(0)
+        p1 = (st.mass[:, None] * out.vel).sum(0)
+        mom = float((p1 - p0).abs().max()) / float(
+            (st.mass[:, None] * st.vel.abs()).sum())
+        pass_ms = time_ms(lambda: coll.resolve_collisions(st, cfg), 5, 2)
+        require(len(calls["cuda"]) == len(calls["torch"]) == k5_launched
+                == (4 if over else 2),
+                f"hash pass {dim}D: K5 launches {k5_launched}, recorded "
+                f"{len(calls['cuda'])} / {len(calls['torch'])}")
+        require(err <= 1e-5 * vmax and mom <= 1e-5,
+                f"hash pass {dim}D: kernels vs plain {err:.3e} (tol "
+                f"{1e-5 * vmax:.3e}), momentum {mom:.3e}")
+        k5 = {"ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "err": 0.0,
+              "bytes": 0.0, "ops": 0.0, "shapes": []}
+        for (tgt, src, kw, got, _), (_, _, _, want, p_ms) in zip(
+                calls["cuda"], calls["torch"]):
+            rows_t, rows_s = tgt[0].shape[0], src[0].shape[0]
+            k5["ms"] += time_ms(lambda: real["cuda"](tgt, src, **kw), 10)
+            k5["plain_ms"] += p_ms
+            k5["err"] = max(k5["err"], *(float((a - b).abs().max())
+                                         for a, b in zip(got, want)))
+            big, small = (tgt, src) if rows_t >= rows_s else (src, tgt)
+            needed = k5_needed_pairs(big, small, kw["max_cheb"])
+            cols = 2 * dim + 2 + (0 if kw["max_cheb"] is None else dim)
+            k5["bytes"] += 4.0 * (cols * (rows_t + rows_s) + 2 * dim * rows_t)
+            k5["ops"] += 7.0 * needed
+            k5["shapes"].append(f"{rows_t}x{rows_s}")
+        k5["bound"] = bound(k5["bytes"], k5["ops"])
+        say("surface", f"hash pass, {dim}D merger N=1M (cell 600, window "
+            f"16): overflow {over}, big bodies {n_big}; pass "
+            f"{pass_ms:.2f} ms (CUDA events, 5 after 2); kernels vs plain "
+            f"route {err:.3e} (tol {1e-5 * vmax:.3e}), momentum {mom:.3e} "
+            f"of sum m|v|; K5 {k5_launched} launches "
+            f"({', '.join(k5['shapes'])}): {k5['ms']:.4f} ms, plain "
+            f"{k5['plain_ms']:.2f} ms, bound {k5['bound'][0]:.4f} ms "
+            f"({k5['bound'][1]}), max err {k5['err']:.3e}")
+        return k5_launched, k5, err, vmax
+
+    hash_k5 = {dim: hash_case(dim) for dim in (2, 3)}
+
+    # render_frame at 1200 x 900 on phase 10's N=1M disc (SimConfig() under
+    # auto), in its three modes, on the card and against the CPU.
+    rstate, rcfg = disc1m
+    half_span = float(rstate.pos.abs().max())
+    render_ms = {}
+    for mode, kw in (("normal", {}),
+                     ("performance", {"performance_mode": True}),
+                     ("overlays", {"show_quadtree": True,
+                                   "show_connections": True})):
+        rc = RenderConfig(width=1200, height=900, scale=450.0 / half_span,
+                          **kw)
+        frame = render_frame(rstate, rc)
+        cpu_frame = render_frame(rstate.to("cpu"), rc)
+        off = (frame.cpu().int() - cpu_frame.int()).abs().amax(-1)
+        flips = int((off > 1).sum())
+        render_ms[mode] = time_ms(lambda: render_frame(rstate, rc), 5, 2)
+        say("surface", f"render_frame 1200x900, N=1M disc, {mode}: "
+            f"{render_ms[mode]:.3f} ms (CUDA events, 5 after 2); against "
+            f"the CPU's frame: {int((off > 0).sum())} pixels differ, "
+            f"{flips} by more than 1 (tol {int(0.001 * off.numel())})")
+        require(frame.dtype == torch.uint8 and int(frame.max()) > 0
+                and flips <= 0.001 * off.numel(),
+                f"render_frame {mode}: {flips} pixels off by more than 1")
+    rc = RenderConfig(width=1200, height=900, scale=450.0 / half_span)
+    from nbodysim_tpu_torch.render.overlays import (
+        connections_overlay, quadtree_overlay)
+    base = render_frame(rstate, rc)
+    quad_ms, conn_ms = (
+        time_ms(lambda: fn(base, rstate, rc.scale, rc.center), 5, 2)
+        for fn in (quadtree_overlay, connections_overlay))
+    say("surface", f"overlays alone on that frame: quadtree {quad_ms:.3f} "
+        f"ms, connections (cluster mode) {conn_ms:.3f} ms")
+    sink = []
+    writer = AsyncFrameWriter(lambda i, f: sink.append((i, f.shape)))
+    for c in (allpairs_accelerations, allpairs_accelerations_wide,
+              bucket_stencil):
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i, f in enumerate(render_rollout(rstate, rcfg, 10, 1,
+                                             rc)):
+            writer.submit(i, f)
+    writer.close()
+    fps = 10 / (time.perf_counter() - t0)
+    ro_launches = {"K1": allpairs_accelerations.launches,
+                   "K4": allpairs_accelerations_wide.launches,
+                   "K3": bucket_stencil.launches}
+    say("surface", f"render_rollout N=1M disc, 10 frames of 1 step "
+        f"(AsyncFrameWriter, numpy sink): {fps:.3f} frames/s (host clock, "
+        f"probes and priming included); launches {ro_launches}")
+    require(sink == [(i, (900, 1200, 3)) for i in range(10)]
+            and ro_launches["K1"] >= 9,
+            f"render_rollout frames {sink[:2]}..., launches {ro_launches}")
+
+    # The bench: the default run, then BASELINE configs 1, 2 and 5.
+    bench_lines = {}
+    for argv in ([], ["--config", "1"], ["--config", "2"],
+                 ["--config", "5"]):
+        t0 = time.perf_counter()
+        lines = captured(tbench.main, argv)
+        rows = [json.loads(x) for x in lines]
+        require(rows[0]["device"] == torch.cuda.get_device_name(0)
+                and all(r["value"] is not None and math.isfinite(r["value"])
+                        for r in rows[1:]),
+                f"bench {argv} printed {rows}")
+        for r in rows[1:]:
+            bench_lines[r["metric"]] = r["value"]
+        say("surface", f"bench {' '.join(argv) or '(default)'}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    drift = tbench.drift_gate(dev)
+    say("surface", f"drift gate (Plummer N=4096, leapfrog, dt 0.5, "
+        f"softening 10, 10,000 steps in chunks of 500, K1): worst |dE/E| "
+        f"{drift['value']:.3e} against 1e-4")
+    require(drift["passed"], f"drift gate: worst |dE/E| {drift['value']:.3e}"
+            f" > 1e-4")
+
+    # A trace of 3 steps of the N=25k main path.
+    tsim = Simulation(SimConfig(n=25_000), scene="uniform_disc")
+    tsim.run(1)
+    with trace(str(work / "trace")):
+        tsim.run(3)
+    tfiles = list((work / "trace").glob("trace_*.json"))
+    events = json.loads(tfiles[0].read_text())["traceEvents"] if tfiles \
+        else []
+    kernels_traced = sum(1 for e in events if e.get("cat") == "kernel")
+    say("surface", f"profiling.trace around 3 steps: {len(tfiles)} file(s), "
+        f"{len(events)} events, {kernels_traced} device kernel events")
+    require(tfiles and kernels_traced >= 6,
+            f"trace wrote {tfiles}, {kernels_traced} kernel events")
+    say("surface", f"phase 12 took {time.perf_counter() - t_phase12:.1f} s")
+
+
     n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
     k2_bound, k2_by = bound(4.0 * n25 * (2 + 2 + 1 + 1 + 2 + 2),
@@ -2685,6 +2953,14 @@ def main() -> None:
               "nbodysim_tpu/kernels/nearfield.py:262", pl_launches["K7"],
               pl_errs["K7"], *deep3_k["K7"][:2], deep3_k["K7"][2:]),
     ]
+    for dim, (k5_launched, k5, _, vmax) in hash_k5.items():
+        kernels.append(entry(
+            f"K5 rect_pair_deltas (hash pass, {dim}D N=1M merger, every "
+            f"launch of one pass: {', '.join(k5['shapes'])}; ms, plain_ms "
+            f"and bound summed over them)",
+            "nbodysim_tpu_torch/csrc/collide.cu",
+            "nbodysim_tpu/kernels/collide.py:250", k5_launched, k5["err"],
+            k5["ms"], k5["plain_ms"], k5["bound"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

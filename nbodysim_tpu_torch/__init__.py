@@ -8,6 +8,11 @@ layout and public names follow `nbodysim_tpu`; this package imports no JAX.
 
 Public API:
     SimConfig, ParticleState, init_scene, make_step, simulate, diagnostics
+
+The product surface lives in its subpackages, as in the JAX package:
+`io` (checkpoints), `render` (frames, overlays, video), `diagnostics`
+(metrics, profiling), `app.viewer`, and the entry points
+`python -m nbodysim_tpu_torch.cli` and `python -m nbodysim_tpu_torch.bench`.
 """
 
 from nbodysim_tpu_torch.config import SimConfig

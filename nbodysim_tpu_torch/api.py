@@ -58,6 +58,9 @@ class Simulation:
         **scene_kwargs,
     ):
         self.config = config or SimConfig()
+        # Which choices the user left on 'auto': the mid-run re-resolve
+        # (re_resolve_auto) may only adapt those.
+        self._auto_force = self.config.force_backend == "auto"
         self.device = torch.device(device)
         if state is None:
             from nbodysim_tpu_torch.scenes import init_scene
@@ -77,6 +80,40 @@ class Simulation:
         self.state = state
         self._step = make_step(self.config)
         self.check_capacity()
+
+    def re_resolve_auto(self, when: str = "mid-run") -> bool:
+        """Re-run the init-time 'auto' probes on the CURRENT state and adopt
+        any change that enables coverage (a merger migrates mass, so the
+        init-time pin can go stale; the CLI run loop calls this whenever
+        `check_capacity` trips). The escalation is monotonic: the
+        deep-overflow chain on, the bucket grid -> the block pass, never
+        back, so a long run rebuilds its step at most twice. Only fields
+        that were 'auto' at construction are touched. `when` is not used
+        by the probes (their warnings name the change). Returns True when
+        the config changed and the step was rebuilt."""
+        changed: dict = {}
+        cfg, state = self.config, self.state
+        if (self._auto_force and cfg.force_backend == "bh"
+                and cfg.bh_deep_levels == 0):
+            probed = resolve_config_for_state(
+                state.pos, state.mass, cfg.replace(force_backend="auto"))
+            if probed.bh_deep_levels != 0:
+                changed["bh_deep_levels"] = probed.bh_deep_levels
+        if cfg.enable_collisions and cfg.collision_broad_phase == "auto":
+            probed = resolve_collision_phase_for_state(state, cfg)
+            if probed.collision_broad_phase != cfg.collision_broad_phase:
+                changed["collision_broad_phase"] = \
+                    probed.collision_broad_phase
+                changed["collision_cell_size"] = probed.collision_cell_size
+        if not changed:
+            return False
+        self.config = cfg.replace(**changed)
+        if self.config.integrator == "leapfrog_kdk":
+            # The carried half-kick acceleration comes from the newly
+            # adopted force discretization.
+            self.state = prime_accelerations(self.state, self.config)
+        self._step = make_step(self.config)
+        return True
 
     def check_capacity(self, when: str = "the initial state") -> bool:
         """Host-side capacity checks of the fixed-size exact residuals, which

@@ -115,6 +115,17 @@ class ParticleState:
         return dataclasses.replace(self, **kw)
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device on a host without one
+    raises RuntimeError (the entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' (--device cpu) to run on the CPU")
+    return device
+
+
 def validate_state(state: ParticleState) -> None:
     """Shape checks; raises ValueError on a malformed state."""
     n, d = state.pos.shape

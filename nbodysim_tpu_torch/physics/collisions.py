@@ -18,16 +18,18 @@ Broad phases, as `resolve_collisions` dispatches them:
     of T sorted targets against 3 (2D) / 9 (3D) contiguous source windows;
     the dense stage is K6 (`kernels/collide_block.block_collision_deltas`).
 
-Both large-N passes extract the (at most 64) big bodies from the grid and
+  * 'hash' (never picked by 'auto'; only when set explicitly): particles
+    sorted by a multiplicative hash of radius-scaled cells, each scanning a
+    fixed window of the 9 (2D) / 27 (3D) neighbour cells' hash segments,
+    located by binary search (`_grid_pass`, `_cell_hash`); plain torch, as
+    the JAX package computes it in XLA, in chunks of `_WINDOW_CHUNK` rows.
+
+The large-N passes extract the (at most 64) big bodies from the grid and
 couple them to everything, and send particles the grid could not cover to a
 capped exact residual (`_exact_corrections`); every such rectangle of
 targets against sources is K5 (`kernels/collide.rect_pair_deltas`). On a
 CUDA tensor, with collision_backend 'auto' or 'cuda', the kernels run;
 collision_backend 'torch' runs their plain versions on any device.
-
-The sorted-hash broad phase ('hash': `_grid_pass`, `_cell_hash`) is not
-ported (ROADMAP Queue A item 11) and raises NotImplementedError before any
-pair work; 'auto' never picks it.
 """
 
 from __future__ import annotations
@@ -552,21 +554,144 @@ def collision_bucket_overflow(state: ParticleState, config: SimConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Sorted-spatial-hash broad phase (large N, 2D and 3D; explicit 'hash' only)
+# ---------------------------------------------------------------------------
+
+# Particle-chunk size of the windowed candidate scan: bounds its [B, C*W, D]
+# temps whatever N is (the JAX package measured ~47 GB for a single [N, 144,
+# D] scan at N=4M).
+_WINDOW_CHUNK = 1 << 17
+
+# Multiplicative hash of SpatialGrid::hash_position's family
+# (Simulation.hpp:31-34), in uint32 in the JAX package.
+_HASH_PRIMES = (92837111, 689287499, 283923481)
+_HASH_MULT = 15485863
+_LOW32 = (1 << 32) - 1
+
+
+def _cell_hash(cell: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Hash of int32 cell coords [..., D] -> int32 in [0, n_buckets), a
+    power of two: the JAX package's uint32 hash bit for bit. The products
+    run in int64 and keep their low 32 bits (the uint32 result), so nothing
+    relies on int32 overflow wrapping."""
+    h = torch.zeros(cell.shape[:-1], dtype=torch.int64, device=cell.device)
+    for axis in range(cell.shape[-1]):
+        h = h ^ (cell[..., axis].to(torch.int64) * _HASH_PRIMES[axis])
+    h = (h & _LOW32) * _HASH_MULT
+    return (h & (n_buckets - 1)).to(torch.int32)
+
+
+def _neighbour_offsets(dim: int, device) -> torch.Tensor:
+    """The 9 (2D) / 27 (3D) cell offsets, last axis fastest [C, D] int32."""
+    axes = torch.meshgrid(*([torch.arange(-1, 2, dtype=torch.int32,
+                                          device=device)] * dim),
+                          indexing="ij")
+    return torch.stack(axes, -1).reshape(-1, dim)
+
+
+class _HashGrid(NamedTuple):
+    """What the hash pass and its probe share (sorted by hash)."""
+    bigs: _Bigs
+    cell: torch.Tensor       # [N, D] int32 radius-scaled cells (original)
+    n_buckets: int
+    order: torch.Tensor      # [N] stable sort by hash
+    h_s: torch.Tensor        # [N] int32 sorted hashes
+    big_s: torch.Tensor      # [N] sorted is_big
+    in_win: torch.Tensor     # [N] sorted: rank in its segment < W, not big
+
+
+def _hash_grid(pos: torch.Tensor, radius: torch.Tensor,
+               config: SimConfig) -> _HashGrid:
+    """Big-body extraction (cells floored at 2.05x the 65th largest radius;
+    collision_cell_size <= 0 leaves the floor alone), hash, stable sort, and
+    the window: the first W = collision_max_neighbors rows of each hash
+    segment are the sources its probes see."""
+    n = pos.shape[0]
+    floor = torch.tensor(max(float(config.collision_cell_size), 1e-6),
+                         dtype=pos.dtype, device=pos.device)
+    bigs = _extract_bigs(radius, floor)
+    cell = torch.floor(pos / bigs.cell_size).to(torch.int32)      # [N, D]
+    n_buckets = 1 << max(1, (2 * n - 1).bit_length())    # >= 2N, power of 2
+    h = _cell_hash(cell, n_buckets)
+    order = torch.argsort(h, stable=True)
+    h_s = h[order]
+    big_s = bigs.is_big[order]
+    rank = torch.arange(n, device=pos.device) - sorted_first_occurrence(h_s)
+    in_win = (rank < config.collision_max_neighbors) & ~big_s
+    return _HashGrid(bigs, cell, n_buckets, order, h_s, big_s, in_win)
+
+
+def _window_scan(g: _HashGrid, fields_s: Fields, offs: torch.Tensor,
+                 window: int, impulse: float, row0: int, rows: int):
+    """Pair deltas (dpos, dvel) [rows, D] of sorted rows [row0, row0+rows)
+    against the first `window` rows of each neighbour cell's hash segment.
+    A candidate counts when its cell (not only its hash) is the probed one,
+    it is not the target itself, and both sit in their windows, so every
+    impulse has its Jacobi counterpart."""
+    pos_s, vel_s, mass_s, radius_s, cell_s = fields_s
+    n = pos_s.shape[0]
+    sl = slice(row0, row0 + rows)
+    nbr_cells = cell_s[sl, None, :] + offs[None]                 # [B, C, D]
+    nbr_hash = _cell_hash(nbr_cells, g.n_buckets)                 # [B, C]
+    starts = torch.searchsorted(g.h_s, nbr_hash.reshape(-1)).reshape(
+        rows, -1)
+    win = torch.arange(window, device=pos_s.device)
+    cand = (starts[:, :, None] + win).reshape(rows, -1)           # [B, K]
+    in_range = cand < n
+    cand = torch.clamp_max(cand, n - 1)
+    cell_match = (cell_s[cand] == nbr_cells.repeat_interleave(
+        window, dim=1)).all(-1)
+    sidx = torch.arange(row0, row0 + rows, device=pos_s.device)
+    valid = (in_range
+             & (g.h_s[cand] == nbr_hash.repeat_interleave(window, dim=1))
+             & cell_match & (cand != sidx[:, None])
+             & g.in_win[sl, None] & g.in_win[cand])
+    d = pos_s[cand] - pos_s[sl, None, :]
+    v = vel_s[cand] - vel_s[sl, None, :]
+    m_j = mass_s[cand]
+    msum = mass_s[sl, None] + m_j
+    valid = valid & (msum > 0.0)    # zero-mass pairs: no impulse, no NaN
+    w1 = torch.where(valid, m_j / torch.where(msum > 0.0, msum, 1.0), 0.0)
+    r = radius_s[sl, None] + radius_s[cand]
+    dpos, dvel = _pair_deltas(d, v, w1, r, valid, impulse)
+    return dpos.sum(1), dvel.sum(1)
+
+
+def _grid_pass(state: ParticleState, config: SimConfig) -> ParticleState:
+    """Sorted spatial-hash Jacobi collision pass (JAX `_grid_pass`).
+
+    Hash -> stable sort -> per-particle windowed scan of the neighbour
+    cells' segments (the first `collision_max_neighbors` rows of each),
+    in chunks of `_WINDOW_CHUNK` rows; particles past their segment's
+    window take the shared exact residual, big bodies the shared unmasked
+    passes (K5 on the card)."""
+    n, dim = state.n, state.dim
+    g = _hash_grid(state.pos, state.radius, config)
+    order = g.order
+    fields_s = (state.pos[order], state.vel[order], state.mass[order],
+                state.radius[order], g.cell[order])
+    offs = _neighbour_offsets(dim, state.device)
+    window = config.collision_max_neighbors
+    parts = [_window_scan(g, fields_s, offs, window,
+                          config.collision_impulse, r0,
+                          min(_WINDOW_CHUNK, n - r0))
+             for r0 in range(0, n, _WINDOW_CHUNK)]
+    dpos_s = torch.cat([p[0] for p in parts])
+    dvel_s = torch.cat([p[1] for p in parts])
+    overflow = (~g.in_win & ~g.big_s).sum()
+    return _apply(state, _corrected_deltas(
+        state, order, g.bigs, g.cell, fields_s, dpos_s, dvel_s, g.in_win,
+        g.big_s, overflow, config, _use_kernels(state, config)))
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
-def _hash_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "collision_broad_phase='hash' (the sorted spatial hash, _grid_pass) "
-        "is not ported yet (ROADMAP Queue A item 11); 'auto' never picks "
-        "it: use 'block' for the same radius-scaled cells")
-
-
 def _broad_phase(state: ParticleState, config: SimConfig) -> str:
-    """The pass `resolve_collisions` runs: 'dense', 'bucket' or 'block'."""
+    """The pass `resolve_collisions` runs: 'dense', 'bucket', 'hash' or
+    'block'."""
     bp = config.collision_broad_phase
-    if bp == "hash":
-        raise _hash_not_ported()
     if bp == "auto":
         if state.n <= DENSE_THRESHOLD:
             return "dense"
@@ -582,11 +707,9 @@ def resolve_collision_phase_for_state(state: ParticleState,
     the 2D bucket grid and the actual distribution overflows it beyond the
     residual's capacity, switch to the lex-sorted block pass with
     radius-scaled cells (and warn). Explicit broad phases are honoured
-    untouched; 'hash' raises (not ported)."""
+    untouched."""
     if not config.enable_collisions:
         return config
-    if config.collision_broad_phase == "hash":
-        raise _hash_not_ported()
     if (state.dim != 2 or state.n <= DENSE_THRESHOLD
             or config.collision_broad_phase != "auto"):
         return config
@@ -609,6 +732,7 @@ def resolve_collisions(state: ParticleState,
     if not config.enable_collisions:
         return state
     one_pass = {"dense": _dense_pass, "bucket": _bucket_pass,
+                "hash": _grid_pass,
                 "block": _block_pass}[_broad_phase(state, config)]
     for _ in range(max(1, config.collision_iterations)):
         state = one_pass(state, config)

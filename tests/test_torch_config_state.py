@@ -161,10 +161,11 @@ def _forbid_pair_work(monkeypatch):
 
 @pytest.mark.parametrize("phase", ["auto", "bucket", "hash", "block"])
 def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
-    """'hash' (the sorted spatial hash, ROADMAP item 11) raises before any
-    pair work; 'auto' past N = 65,536, 'bucket' and 'block' are ported and
-    resolve to their passes (the 70,000 bodies at one point overflow the
-    bucket grid, so 'auto' switches to the block pass)."""
+    """Every broad phase is ported and resolves to its pass without the
+    dense pair work: 'auto' past N = 65,536 (the 70,000 bodies at one point
+    overflow the bucket grid, so 'auto' switches to the block pass),
+    'bucket', 'block' and 'hash' (the sorted spatial hash, which 'auto'
+    never picks and Simulation keeps as given)."""
     _forbid_pair_work(monkeypatch)
     n_bodies = 70_000 if phase == "auto" else 64
     state = nt.ParticleState.create(
@@ -174,13 +175,8 @@ def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
     cfg = nt.SimConfig(n=n_bodies, collision_broad_phase=phase,
                        collision_grid_res=16)
     if phase == "hash":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcoll.resolve_collisions(state, cfg)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tcoll.resolve_collision_phase_for_state(state, cfg)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            nt.Simulation(cfg, state=state, device=CPU)
-        return
+        sim = nt.Simulation(cfg, state=state, device=CPU)
+        assert sim.config.collision_broad_phase == "hash"
     if phase == "auto":
         assert tcoll._broad_phase(state, cfg) == "bucket"
         with pytest.warns(RuntimeWarning):   # the switch, then the overflow
@@ -198,25 +194,27 @@ def test_large_n_and_other_broad_phases_raise_first(monkeypatch, phase):
 
 
 def test_scene_errors():
+    """An unknown scene raises KeyError naming the scenes; every scene of
+    the JAX package builds in the port."""
     with pytest.raises(KeyError, match="uniform_disc"):
         nt.init_scene("nope", nt.SimConfig(), device=CPU)
-    for name in ("spiral", "kuzmin"):
+    for name in ("spiral", "kuzmin", "galaxy_merger", "plummer"):
         assert name in nt.scenes.SCENES
-        with pytest.raises(NotImplementedError):
-            nt.init_scene(name, nt.SimConfig(n=64), device=CPU)
-    for name in ("galaxy_merger", "plummer"):
-        assert nt.init_scene(name, nt.SimConfig(n=64), device=CPU).n == 64
+        state = nt.init_scene(name, nt.SimConfig(n=64), device=CPU)
+        assert state.n == 64 and bool(torch.isfinite(state.pos).all())
 
 
 def test_package_imports_no_jax():
-    """The port must run where JAX is absent: import it with jax and the JAX
-    package blocked, and run two steps at N=64 on the CPU."""
+    """The port must run where JAX is absent: import every module of it with
+    jax and the JAX package blocked, and run two steps at N=64 on the CPU."""
     code = (
-        "import sys\n"
+        "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['nbodysim_tpu'] = None\n"
         "import torch\n"
         "import nbodysim_tpu_torch as nt\n"
+        "for info in pkgutil.walk_packages(nt.__path__, 'nbodysim_tpu_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
         "sim = nt.Simulation(nt.SimConfig(n=64), device='cpu')\n"
         "sim.run(2)\n"
         "assert sim.frame == 2\n"
@@ -233,20 +231,27 @@ def test_package_imports_no_jax():
 
 
 def test_entry_points_default_to_the_card():
-    """Simulation, init_scene and every scene constructor reached through it
+    """Simulation, init_scene, every scene constructor reached through it,
+    render_rollout, the viewer, load_checkpoint and the throughput meters
     take device="cuda" unless the caller passes another (read from the
     signatures: nothing here touches a GPU); device="cpu" still builds on
     the CPU."""
     import inspect
 
+    from nbodysim_tpu_torch.app.viewer import Viewer
+    from nbodysim_tpu_torch.diagnostics import profiling
+    from nbodysim_tpu_torch.io.checkpoint import load_checkpoint
+    from nbodysim_tpu_torch.render.video import render_rollout
     from nbodysim_tpu_torch.scenes import SCENES, init_scene
 
-    ported = [fn for name, fn in SCENES.items()
-              if name not in ("spiral", "kuzmin")]
-    for fn in (nt.Simulation.__init__, init_scene, *ported):
+    for fn in (nt.Simulation.__init__, init_scene, *SCENES.values(),
+               render_rollout, Viewer.__init__):
         param = inspect.signature(fn).parameters["device"]
         assert param.default == "cuda", fn
         assert param.kind is inspect.Parameter.KEYWORD_ONLY, fn
+    for fn in (load_checkpoint, profiling.measure_force_throughput,
+               profiling.measure_step_throughput):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     state = init_scene("uniform_disc", nt.SimConfig(n=64), device="cpu")
     assert state.pos.device == CPU
     sim = nt.Simulation(nt.SimConfig(n=64), device="cpu")

@@ -879,3 +879,81 @@ def test_tile_selection_on_the_card_equals_the_cpu(dev):
     assert int(out["cpu"][1].sum()) > 0 and int(out["cpu"][5].sum()) > 0
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("window", [2, 16])
+def test_hash_pass_through_k5_matches_plain(dev, dim, window):
+    """The sorted-hash pass (collision_broad_phase='hash') through K5 (two
+    big-body launches, two more when bodies pass their window) against the
+    same pass through K5's plain version, within 1e-5 * max(max|v|, 10),
+    momentum to 1e-5 of sum m|v|; the hash equals the CPU's."""
+    g = _gen(dev, 90 + dim)
+    n = 20_000
+    pos = _uniform(g, (n, dim), -80.0, 80.0)
+    vel = _uniform(g, (n, dim), -5.0, 5.0)
+    mass = _uniform(g, (n,), 0.5, 2.0)
+    radius = 0.8 * mass.pow(1.0 / 3.0)
+    radius[:5] = 9.0
+    state = nt.ParticleState.create(pos, vel, mass, radius)
+    cfg = nt.SimConfig(n=n, dim=dim, collision_broad_phase="hash",
+                       collision_cell_size=0.0,
+                       collision_max_neighbors=window)
+    hg = coll._hash_grid(state.pos, state.radius, cfg)
+    cells = hg.cell.cpu()
+    assert torch.equal(coll._cell_hash(cells, hg.n_buckets),
+                       coll._cell_hash(hg.cell, hg.n_buckets).cpu())
+    over = int((~hg.in_win & ~hg.big_s).sum())
+    before = rect_pair_deltas.launches
+    out = coll.resolve_collisions(state, cfg)
+    assert rect_pair_deltas.launches - before == (4 if over else 2)
+    plain = coll.resolve_collisions(
+        state, cfg.replace(collision_backend="torch"))
+    torch.cuda.synchronize()
+    assert over > 0 or window == 16   # a window of 2 always overflows
+    assert _close((out.pos, out.vel), (plain.pos, plain.vel), plain.vel)
+    assert float((out.vel - state.vel).abs().max()) > 0.1
+    p0 = (state.mass[:, None] * state.vel).sum(0)
+    p1 = (state.mass[:, None] * out.vel).sum(0)
+    assert float((p1 - p0).abs().max()) <= \
+        1e-5 * float((state.mass[:, None] * state.vel.abs()).sum())
+
+
+@pytest.mark.parametrize("mode", ["normal", "performance", "overlays"])
+def test_render_frame_on_the_card_matches_the_cpu(dev, mode):
+    """render_frame on the card against the same state on the CPU: every
+    pixel within 1 except at most 0.1% (atomic scatter-add order, the
+    transcendentals' last bits)."""
+    from nbodysim_tpu_torch.render.splat import RenderConfig, render_frame
+
+    state = nt.init_scene("uniform_disc", nt.SimConfig(n=4096), device=dev)
+    kw = {"normal": {}, "performance": {"performance_mode": True},
+          "overlays": {"show_quadtree": True, "show_connections": True}}
+    rc = RenderConfig(width=320, height=240, scale=0.004, **kw[mode])
+    got = render_frame(state, rc)
+    assert got.is_cuda and got.dtype == torch.uint8
+    want = render_frame(state.to("cpu"), rc)
+    off = (got.cpu().int() - want.int()).abs().amax(-1)
+    assert int(want.max()) > 0
+    assert int((off > 1).sum()) <= 0.001 * off.numel()
+
+
+def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
+    """A state on the card saved and loaded back onto the card, bit for
+    bit, with its config; the loader's default device is the card."""
+    from nbodysim_tpu_torch.io.checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    cfg = nt.SimConfig(n=2048, force_backend="cuda")
+    sim = nt.Simulation(cfg, scene="uniform_disc", device=dev)
+    sim.run(3)
+    path = save_checkpoint(str(tmp_path / "c.npz"), sim.state, cfg)
+    state, cfg2 = load_checkpoint(path)
+    assert state.pos.is_cuda and cfg2 == cfg
+    for k in ("pos", "vel", "acc", "mass", "radius", "frame"):
+        assert torch.equal(getattr(state, k), getattr(sim.state, k)), k
+    resumed = nt.Simulation(cfg2, state=state, device=dev)
+    resumed.run(2)
+    sim.run(2)
+    assert torch.equal(resumed.state.pos, sim.state.pos)
+    assert torch.equal(resumed.state.vel, sim.state.vel)
