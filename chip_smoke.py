@@ -139,6 +139,28 @@ Phases, each printing its own lines:
                 1e-4); `profiling.trace` around 3 steps (a Chrome trace
                 with the device's kernels). Scratch files go to the
                 gitignored build/smoke12/.
+ 13. sharded  — the multi-device step (`nbodysim_tpu_torch.parallel`) on
+                torch.distributed, neither run a scaling figure. World size
+                2 over gloo, both ranks on the one card (spawned, joined,
+                kernels built beforehand): the N=25k disc step (the ring: K1
+                twice a rank; the gathered dense pass: K2's row range once)
+                against the single-device step (pos 1e-6 * max|x|, vel
+                1e-3), the banded 2D eval on phase 6's N=1M input (256 rows
+                a band; K1, K3 on the band window, K4 once a rank) and the
+                banded deep chain on phase 10's N=1M disc against the
+                single-device tree (2e-5 * max|a|), each rank's launches and
+                band window capacity, a checkpoint written at P=2. Then
+                world size 1 over NCCL in this process: make_sharded_step
+                against Simulation.run(200) on the N=25k disc (bit for bit,
+                K1 and K2 200 times each, both steps/s), the sharded
+                rollout, the leapfrog prime and 10 steps (bit for bit), the
+                N=1M disc under auto for 5 steps (the replicated tree: K1,
+                K3, K4 once a step), a sharded checkpoint at step 3 resumed
+                to step 6 (bit for bit) and the P=2 checkpoint resumed at
+                P=1 (2e-6 * max|x|, 2e-5 * max|v|). K1 at the ring's hop, K2
+                in its row range and K3 on the band window against their
+                plain versions, timed and bounded. Scratch in
+                build/smoke13/.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -154,6 +176,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 
 def fail(msg: str) -> None:
@@ -330,6 +353,473 @@ def near_pairs(counts_w, rows: int, rr: int, cap: int):
         warps.scatter_reduce_(0, key[:, None].expand(-1, run.shape[-1]),
                               run[live], "amax")
     return needed, float(32 * warps.sum()), float(cap * runs.sum(-1).sum())
+
+
+def _np_state(st) -> dict:
+    """A state's fields as numpy arrays (what a spawned rank is given)."""
+    return {k: getattr(st, k).detach().cpu().numpy()
+            for k in ("pos", "vel", "acc", "mass", "radius", "frame")}
+
+
+def _sharded_worker(rank: int, jobs: dict) -> dict:
+    """One rank of phase 13's world-size-2 run: gloo, both ranks on the one
+    card. Runs the N=25k disc step (the ring and K2's row range), the
+    banded 2D eval on phase 6's N=1M input (K3 on its band window, whose
+    first launch's operands it keeps), the banded deep chain on the N=1M
+    disc, and a checkpoint written at P=2; returns what the parent holds
+    against the single-device results (rank 0: the whole arrays)."""
+    import torch
+
+    from nbodysim_tpu_torch import ParticleState, SimConfig
+    from nbodysim_tpu_torch.io import save_checkpoint
+    from nbodysim_tpu_torch.kernels.allpairs import (
+        allpairs_accelerations, allpairs_accelerations_wide)
+    from nbodysim_tpu_torch.kernels.collide import allpairs_collision_deltas
+    from nbodysim_tpu_torch.parallel import (
+        comm, make_mesh, make_sharded_step, shard_state, tree)
+    from nbodysim_tpu_torch.parallel.sharded import gather_state, mesh_device
+
+    mesh = make_mesh()                 # the card, in the spawned gloo group
+    dev = mesh_device(mesh)
+    ax = comm.mesh_axis(mesh, "shards")
+    real_k3 = tree.bucket_stencil
+    counters = {"K1": allpairs_accelerations, "K2": allpairs_collision_deltas,
+                "K3": real_k3, "K4": allpairs_accelerations_wide}
+    out = {"rank": rank}
+
+    def launches():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def whole(x):
+        return comm.all_gather(x, ax).cpu().numpy()
+
+    def local(a):
+        n_l = a.shape[0] // ax.size
+        return torch.from_numpy(a[rank * n_l:(rank + 1) * n_l]).to(dev)
+
+    def events_ms(fn, iters):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    # The N=25k disc: one sharded step (K1 twice a rank, K2 once).
+    cfg = SimConfig(**jobs["disc_cfg"])
+    ss = shard_state(ParticleState.from_numpy(jobs["disc"], dev), mesh)
+    step = make_sharded_step(cfg, mesh)
+    step(ss)
+    reset()
+    s1 = step(ss)
+    out["disc_launches"] = launches()
+    g = gather_state(s1)
+    out["disc"] = {"pos": g.pos.cpu().numpy(), "vel": g.vel.cpu().numpy()}
+    out["disc_step_ms"] = events_ms(lambda: step(ss), 20)
+
+    # The banded 2D eval on the N=1M uniform square; K3's first operands.
+    ucfg = SimConfig(**jobs["u_cfg"])
+    kept = []
+
+    def k3_keep(bx, by, bm, **kw):
+        if not kept:
+            kept.append(tuple(t.cpu() for t in (bx, by, bm, kw["counts"]))
+                        + (kw["rr"], kw["eps_sq"], kw["center_rows"]))
+        return real_k3(bx, by, bm, **kw)
+
+    upl, uml = local(jobs["upos"]), local(jobs["umass"])
+    tree.bucket_stencil = k3_keep
+    try:
+        tree.banded_tree_accelerations(upl, uml, ucfg, ax)   # warm-up
+        reset()
+        acc = tree.banded_tree_accelerations(upl, uml, ucfg, ax)
+        out["u_launches"] = launches()
+    finally:
+        tree.bucket_stencil = real_k3
+    out["u_work"] = dict(tree.banded_tree_accelerations.work)
+    out["u_acc"] = whole(acc)
+    out["u_ms"] = events_ms(
+        lambda: tree.banded_tree_accelerations(upl, uml, ucfg, ax), 3)
+    if rank == 0:
+        out["k3_operands"] = kept[0]
+
+    # The banded deep chain (and tiles) on the N=1M disc, index_add_
+    # deterministic as for the single-device eval it is held to.
+    dcfg = SimConfig(**jobs["d_cfg"])
+    dpl, dml = local(jobs["dpos"]), local(jobs["dmass"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset()
+        acc = tree.banded_tree_accelerations(dpl, dml, dcfg, ax)
+        out["d_launches"] = launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["d_work"] = dict(tree.banded_tree_accelerations.work)
+    out["d_acc"] = whole(acc)
+    out["d_ms"] = events_ms(
+        lambda: tree.banded_tree_accelerations(dpl, dml, dcfg, ax), 3)
+
+    # A checkpoint written at P=2 after 3 steps, and 3 more steps (the
+    # reference the parent's P=1 resume is held to).
+    for _ in range(3):
+        ss = step(ss)
+    save_checkpoint(jobs["ck"], ss, cfg)
+    for _ in range(3):
+        ss = step(ss)
+    g = gather_state(ss)
+    out["ck_ref"] = {"pos": g.pos.cpu().numpy(), "vel": g.vel.cpu().numpy(),
+                     "frame": int(g.frame)}
+    out["host_staged"] = sorted(comm.HOST_STAGED)
+    if rank != 0:
+        for k in ("disc", "u_acc", "d_acc", "ck_ref"):
+            out.pop(k)
+    return out
+
+
+def sharded_phase(ctx) -> list:
+    """Phase 13: the multi-device step on torch.distributed. World size 2
+    over gloo with both ranks on the one card (`_sharded_worker`), then
+    world size 1 over NCCL in this process; neither gives a scaling
+    figure. Returns the K1 (ring), K2 (row range) and K3 (band window)
+    entries of the kernels line."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nbodysim_tpu_torch import SimConfig, Simulation
+    from nbodysim_tpu_torch.io import load_checkpoint_sharded, save_checkpoint
+    from nbodysim_tpu_torch.kernels.allpairs import (
+        allpairs_accelerations, allpairs_accelerations_plain,
+        allpairs_accelerations_wide)
+    from nbodysim_tpu_torch.kernels.collide import (
+        allpairs_collision_deltas, collision_deltas_plain)
+    from nbodysim_tpu_torch.kernels.nearfield import (
+        bucket_stencil, bucket_stencil_plain)
+    from nbodysim_tpu_torch.parallel import (
+        comm, make_mesh, make_sharded_step, prime_accelerations_sharded,
+        shard_state)
+    from nbodysim_tpu_torch.parallel.sharded import make_sharded_rollout
+    from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics.integrators import make_step
+
+    dev, say_ = ctx.dev, (lambda m: say("sharded", m))
+    t13 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "smoke13"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    counters = {"K1": allpairs_accelerations, "K2": allpairs_collision_deltas,
+                "K3": bucket_stencil, "K4": allpairs_accelerations_wide}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def launches(*names):
+        torch.cuda.synchronize()
+        return {k: counters[k].launches for k in names}
+
+    def close(got, ref, what, x_rel=1e-6, v_abs=1e-3):
+        """tests/test_sharding.py's bounds: pos 1e-6 max|x|, vel 1e-3."""
+        ex = float(np.abs(got["pos"] - ref["pos"]).max())
+        ev = float(np.abs(got["vel"] - ref["vel"]).max())
+        tx = x_rel * float(np.abs(ref["pos"]).max())
+        ok = ex <= tx and ev <= v_abs
+        say_(f"{what}: max|dpos| {ex:.3e} (tol {tx:.3e}), max|dvel| "
+             f"{ev:.3e} (tol {v_abs:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{what} disagrees with the single-device run")
+
+    def np_pv(st):
+        return {"pos": st.pos.cpu().numpy(), "vel": st.vel.cpu().numpy()}
+
+    # The same initial state as Simulation's: its own, before any step.
+    disc = Simulation(SimConfig(n=25_000), scene="uniform_disc")
+    st0, cfg25 = disc.state, disc.config
+    dstate, dcfg = ctx.disc_deep
+    ck2 = str(work / "ck_p2.npz")
+
+    # ---- (b) world size 2 over gloo, both ranks on the one card --------
+    jobs = {"disc": _np_state(st0), "disc_cfg": _cfg_fields(cfg25),
+            "upos": ctx.upos.cpu().numpy(), "umass": ctx.umass.cpu().numpy(),
+            "u_cfg": _cfg_fields(ctx.tcfg),
+            "dpos": dstate.pos.cpu().numpy(),
+            "dmass": dstate.mass.cpu().numpy(), "d_cfg": _cfg_fields(dcfg),
+            "ck": ck2}
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_sharded_worker, 2, (jobs,), backend="gloo",
+                       timeout_s=300.0, threads=4)
+    r0 = ranks[0]
+    say_(f"world size 2 over gloo, both ranks on the one card: "
+         f"{time.perf_counter() - t0:.1f} s with start-up; collectives "
+         f"staged through host memory: {r0['host_staged']}")
+    for r in ranks:
+        say_(f"rank {r['rank']}: disc step launches {r['disc_launches']}, "
+             f"banded eval launches {r['u_launches']}, deep chain "
+             f"{r['d_launches']}; band {r['u_work']['band_rows']} rows "
+             f"(window {r['u_work']['window_rows']}), window capacity "
+             f"{r['u_work']['window_capacity']}, sorted "
+             f"{r['u_work']['sorted_len']}; deep band capacity "
+             f"{r['d_work'].get('deep_capacity')}")
+        require(r["disc_launches"]["K1"] == 2 and
+                r["disc_launches"]["K2"] == 1,
+                f"rank {r['rank']}: the disc step launched "
+                f"{r['disc_launches']}, expected K1 twice (the ring), K2 "
+                f"once")
+        require(r["u_launches"]["K3"] == 1 and r["u_launches"]["K1"] == 1
+                and r["u_launches"]["K4"] == 1,
+                f"rank {r['rank']}: the banded eval launched "
+                f"{r['u_launches']}, expected K1, K3, K4 once")
+    one = make_step(cfg25)(st0)
+    close(r0["disc"], np_pv(one), "P=2 disc step vs the single-device step")
+    say_(f"P=2 disc step {r0['disc_step_ms']:.4f} ms a step on rank 0 "
+         f"(CUDA events, 20 steps; two ranks share the card and gloo moves "
+         f"the data through host memory: not a scaling figure)")
+
+    def acc_close(got, ref, what):
+        scale = float(ref.abs().max())
+        err = float(np.abs(got - ref.cpu().numpy()).max())
+        ok = err <= 2e-5 * scale
+        say_(f"{what}: max_abs_err {err:.3e} (tol 2e-5 * max|a| = "
+             f"{2e-5 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{what} disagrees with the single-device tree")
+
+    ref_u = bh.bh_accelerations(ctx.upos, ctx.umass, ctx.tcfg)
+    acc_close(r0["u_acc"], ref_u, "banded eval, N=1M uniform, P=2")
+    say_(f"banded eval N=1M uniform at P=2: {r0['u_ms']:.4f} ms on rank 0 "
+         f"(CUDA events, 3 after 1; not a scaling figure)")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref_d = bh.bh_accelerations(dstate.pos, dstate.mass, dcfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    acc_close(r0["d_acc"], ref_d, "banded deep chain, N=1M disc, P=2 "
+              "(deterministic index_add_)")
+    say_(f"banded deep chain N=1M disc at P=2: {r0['d_ms']:.4f} ms on rank "
+         f"0 (CUDA events, 3 after 1; not a scaling figure)")
+
+    # ---- (a) world size 1 over NCCL, in this process ------------------
+    dist.init_process_group("nccl", init_method=f"file://{work}/pg1",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        step = make_sharded_step(cfg25, mesh)
+        # One step each on a copy first: NCCL sets its communicator up at
+        # its first collective.
+        step(shard_state(st0, mesh))
+        make_step(cfg25)(st0)
+        ss = shard_state(st0, mesh)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        reset()
+        ev[0].record()
+        for _ in range(200):
+            ss = step(ss)
+        ev[1].record()
+        sh_launches = launches("K1", "K2")
+        ev[2].record()
+        disc.run(200)
+        ev[3].record()
+        torch.cuda.synchronize()
+        sh_sps = 200e3 / ev[0].elapsed_time(ev[1])
+        sim_sps = 200e3 / ev[2].elapsed_time(ev[3])
+        same = all(torch.equal(getattr(ss, f), getattr(disc.state, f))
+                   for f in ("pos", "vel", "acc", "frame"))
+        say_(f"P=1 over NCCL, N=25k disc, 200 steps: make_sharded_step "
+             f"{sh_sps:.1f} steps/s, Simulation.run {sim_sps:.1f} steps/s "
+             f"(CUDA events, after one step each); launches "
+             f"{sh_launches}; the states "
+             f"{'are bit for bit the same' if same else 'DIFFER'}")
+        require(same and sh_launches == {"K1": 200, "K2": 200},
+                f"P=1 sharded step: same={same}, launches {sh_launches}")
+        ro = make_sharded_rollout(cfg25, mesh, 200)(shard_state(st0, mesh))
+        same = all(torch.equal(getattr(ro, f), getattr(disc.state, f))
+                   for f in ("pos", "vel", "acc", "frame"))
+        say_(f"make_sharded_rollout(200) at P=1: "
+             f"{'bit for bit' if same else 'DIFFERS from'} Simulation.run")
+        require(same, "the P=1 sharded rollout differs from Simulation.run")
+
+        # The leapfrog prime.
+        lf = Simulation(SimConfig(n=25_000, integrator="leapfrog_kdk"),
+                        scene="uniform_disc")
+        ps = prime_accelerations_sharded(
+            shard_state(lf.state.replace(acc=torch.zeros_like(lf.state.acc)),
+                        mesh), lf.config, mesh)
+        lstep = make_sharded_step(lf.config, mesh)
+        primed = torch.equal(ps.acc, lf.state.acc)
+        for _ in range(10):
+            ps = lstep(ps)
+        lf.run(10)
+        same = all(torch.equal(getattr(ps, f), getattr(lf.state, f))
+                   for f in ("pos", "vel", "acc"))
+        say_(f"leapfrog at P=1: prime_accelerations_sharded "
+             f"{'equals' if primed else 'DIFFERS from'} Simulation's prime; "
+             f"10 steps {'bit for bit' if same else 'DIFFER'}")
+        require(primed and same, "the P=1 leapfrog prime or steps differ")
+
+        # The N=1M tree under auto at P=1: the replicated tree.
+        big = Simulation(SimConfig(n=1 << 20, enable_collisions=False))
+        bs = shard_state(big.state, mesh)
+        bstep = make_sharded_step(big.config, mesh)
+        # index_add_ deterministic in both runs: the pyramid's sums in one
+        # order, so the two runs can agree bit for bit.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset()
+            for _ in range(5):
+                bs = bstep(bs)
+            big_launches = launches("K1", "K3", "K4")
+            big.run(5)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(getattr(bs, f), getattr(big.state, f))
+                   for f in ("pos", "vel", "acc"))
+        say_(f"N=1M under auto ({big.config.force_backend}, deep "
+             f"{big.config.bh_deep_levels}) at P=1 (the replicated tree), 5 "
+             f"steps: launches {big_launches}; "
+             f"{'bit for bit' if same else 'not bit for bit'} Simulation's")
+        require(big_launches == {"K1": 5, "K3": 5, "K4": 5},
+                f"N=1M sharded tree launches {big_launches}, expected 5 "
+                f"each")
+        close(np_pv(bs), np_pv(big.state), "N=1M tree, 5 steps at P=1 vs "
+              "Simulation", v_abs=1e-5 * float(big.state.vel.abs().max()))
+        del big, bs
+
+        # A sharded checkpoint at step 3, resumed to step 6.
+        ss = shard_state(st0, mesh)
+        for _ in range(3):
+            ss = step(ss)
+        path = save_checkpoint(str(work / "ck_p1"), ss, cfg25)
+        ref = ss
+        for _ in range(3):
+            ref = step(ref)
+        rs, cfg2 = load_checkpoint_sharded(path, mesh)
+        step2 = make_sharded_step(cfg2, mesh)
+        for _ in range(3):
+            rs = step2(rs)
+        same = int(rs.frame) == 6 and all(
+            torch.equal(getattr(rs, f), getattr(ref, f))
+            for f in ("pos", "vel", "acc", "mass", "radius"))
+        say_(f"sharded checkpoint at step 3 resumed to step 6 at P=1: "
+             f"{'bit for bit' if same else 'DIFFERS from'} the "
+             f"uninterrupted run")
+        require(same, "the P=1 sharded resume differs")
+
+        # The checkpoint written at P=2, resumed at P=1.
+        rs, cfg2 = load_checkpoint_sharded(ck2, mesh)
+        step2 = make_sharded_step(cfg2, mesh)
+        for _ in range(3):
+            rs = step2(rs)
+        got = np_pv(rs)
+        ref2 = r0["ck_ref"]
+        require(int(rs.frame) == ref2["frame"], "P=2 -> P=1 frame")
+        ex = float(np.abs(got["pos"] - ref2["pos"]).max())
+        ev_ = float(np.abs(got["vel"] - ref2["vel"]).max())
+        tx = 2e-6 * float(np.abs(ref2["pos"]).max())
+        tv = 2e-5 * max(float(np.abs(ref2["vel"]).max()), 1e-12)
+        ok = ex <= tx and ev_ <= tv
+        say_(f"checkpoint written at P=2, resumed at P=1 for 3 steps: "
+             f"max|dpos| {ex:.3e} (tol {tx:.3e}), max|dvel| {ev_:.3e} (tol "
+             f"{tv:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, "the P=2 checkpoint resumed at P=1 disagrees")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the launch forms against their plain versions ----------------
+    n = st0.n
+    n_l = n // 2
+    pos, mass = st0.pos, st0.mass
+    eps, gc = cfg25.eps_sq, cfg25.g_const
+
+    def hop(fn):
+        return lambda: fn(pos[:n_l], None, eps_sq=eps, g_const=gc,
+                          src_pos=pos[n_l:], src_mass=mass[n_l:])
+
+    got, want = hop(allpairs_accelerations)(), hop(
+        allpairs_accelerations_plain)()
+    k1_err = float((got - want).abs().max())
+    k1_tol = 1e-5 * float(want.abs().max())
+    require(k1_err <= k1_tol, f"K1 ring hop: {k1_err:.3e} > {k1_tol:.3e}")
+    k1_ms = ctx.time_ms(hop(allpairs_accelerations), 20)
+    k1_plain = ctx.time_ms(hop(allpairs_accelerations_plain), 2)
+    k1_bnd = ctx.pair_bound(float(n_l) * n_l, 4.0 * (2 * n_l + 3 * n_l
+                                                     + 2 * n_l))
+
+    fields = (st0.pos, st0.vel, st0.mass, st0.radius)
+    imp = cfg25.collision_impulse
+
+    def rows(fn):
+        return lambda: fn(*fields, impulse=imp, rows=(n_l, n_l))
+
+    got, want = rows(allpairs_collision_deltas)(), rows(
+        collision_deltas_plain)()
+    vmax = max(float(st0.vel.abs().max()), 10.0)
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(k2_err <= 1e-5 * vmax,
+            f"K2 row range: {k2_err:.3e} > {1e-5 * vmax:.3e}")
+    k2_ms = ctx.time_ms(rows(allpairs_collision_deltas), 20)
+    k2_plain = ctx.time_ms(rows(collision_deltas_plain), 2)
+    k2_bnd = ctx.bound(4.0 * (6 * n + 4 * n_l), 7.0 * n_l * n)
+
+    bx, by, bm, counts, rr, eps_k3, rows_c = r0["k3_operands"]
+    grid = tuple(t.to(dev) for t in (bx, by, bm))
+    counts = counts.to(dev)
+    k3_err = ctx.near_case("sharded", f"band window ({tuple(bx.shape)}, "
+                           f"rank 0 of 2)", grid, counts, eps_k3, rows_c, rr)
+    k3_ms = ctx.time_ms(lambda: bucket_stencil(
+        *grid, counts=counts, rr=rr, eps_sq=eps_k3, center_rows=rows_c), 20)
+    k3_plain = ctx.time_ms(lambda: bucket_stencil_plain(
+        *grid, rr, eps_k3, rows_c), 2)
+    res_w, cap = bx.shape[1], bx.shape[2]
+    pairs, _, _ = near_pairs(counts, rows_c, rr, cap)
+    k3_bnd = ctx.pair_bound(pairs, 4.0 * (3 * float(counts.sum())
+                                          + counts.numel()
+                                          + 2 * rows_c * res_w * cap))
+    for name, ms, plain_ms, bnd in (("K1 ring hop", k1_ms, k1_plain, k1_bnd),
+                                    ("K2 row range", k2_ms, k2_plain,
+                                     k2_bnd),
+                                    ("K3 band window", k3_ms, k3_plain,
+                                     k3_bnd)):
+        say_(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+             f"{bnd[0]:.4f} ms ({bnd[1]})")
+    say_(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    return [
+        ctx.entry(f"K1 allpairs_accelerations (ring hop, P=2: {n_l} x {n_l}"
+                  f"; launches: one step, rank 0)",
+                  "nbodysim_tpu_torch/csrc/allpairs.cu",
+                  "nbodysim_tpu/kernels/allpairs.py:56",
+                  r0["disc_launches"]["K1"], k1_err, k1_ms, k1_plain,
+                  k1_bnd),
+        ctx.entry(f"K2 allpairs_collision_deltas (row range, P=2: {n_l} "
+                  f"rows x {n}; launches: one step, rank 0)",
+                  "nbodysim_tpu_torch/csrc/collide.cu",
+                  "nbodysim_tpu/kernels/collide.py:40",
+                  r0["disc_launches"]["K2"], k2_err, k2_ms, k2_plain,
+                  k2_bnd),
+        ctx.entry(f"K3 bucket_stencil (band window, P=2: "
+                  f"{tuple(bx.shape)}, rr={rr}; launches: one eval, rank 0)",
+                  "nbodysim_tpu_torch/csrc/nearfield.cu",
+                  "nbodysim_tpu/kernels/nearfield.py:49",
+                  r0["u_launches"]["K3"], k3_err, k3_ms, k3_plain, k3_bnd),
+    ]
+
+
+def _cfg_fields(cfg) -> dict:
+    """A SimConfig's fields as a picklable dict (torch dtype included)."""
+    import dataclasses
+
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
 def main() -> None:
@@ -2582,7 +3072,7 @@ def main() -> None:
     del msim3
 
     # The clustered blob (scripts/bench3d_clustered.py's input), one eval:
-    # ROADMAP Queue A item 5's measurement.
+    # the clustered N=1M blob workload of ROADMAP's "Workloads to record".
     from nbodysim_tpu_torch.scenes.blob import clustered_blob
 
     bpos, bmass = clustered_blob(n_p, device=dev)
@@ -2961,6 +3451,11 @@ def main() -> None:
             "nbodysim_tpu_torch/csrc/collide.cu",
             "nbodysim_tpu/kernels/collide.py:250", k5_launched, k5["err"],
             k5["ms"], k5["plain_ms"], k5["bound"]))
+    # -- 13. sharded ----------------------------------------------------------
+    kernels.extend(sharded_phase(SimpleNamespace(
+        dev=dev, time_ms=time_ms, bound=bound, pair_bound=pair_bound,
+        near_case=near_case, entry=entry, upos=upos, umass=umass, tcfg=tcfg,
+        disc_deep=disc1m)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

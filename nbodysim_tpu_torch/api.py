@@ -70,8 +70,9 @@ class Simulation:
         else:
             state = state.to(self.device)
         # Pin 'auto' backends to the concrete ones for this device and N
-        # (the tree's deep chain switched on where the buckets overflow);
-        # what is not ported yet raises here, before any step.
+        # (the tree's deep chain switched on where the buckets overflow),
+        # before any step; an explicit backend the device cannot run
+        # ("cuda" on a CPU tensor) raises here.
         self.config = resolve_config_for_state(
             state.pos, state.mass, self.config)
         self.config = resolve_collision_phase_for_state(state, self.config)

@@ -2,7 +2,7 @@
 //
 // K2 replaces the TPU kernel nbodysim_tpu/kernels/collide.py:_collide_kernel
 // (wrapper allpairs_collision_deltas): every particle against every
-// particle, sources = targets. K5 replaces _rect_kernel (wrapper
+// particle, sources = targets, or a target row range of them against all. K5 replaces _rect_kernel (wrapper
 // rect_pair_deltas): n targets against a separate set of s sources, the
 // exact big-body and overflow-residual passes of the large-N broad phases,
 // with two more masks: the target's mass > 0, and optionally the Chebyshev
@@ -304,20 +304,28 @@ void launch_rect(const float* tpos, const float* tvel,
 
 }  // namespace
 
-// K2: out [2, n, dim] = (dpos, dvel) of every particle against all of them.
+// K2: out [2, n_rows, dim] = (dpos, dvel) of the targets [row0, row0 +
+// n_rows) against all n particles; row0 = 0, n_rows = n is every particle
+// (the row range is a rank's own rows of the multi-device step's gathered
+// arrays). The targets are the same arrays from row0 on, so each target's
+// sum runs over the sources in the same order either way.
 extern "C" int nb_collision_deltas(
     const float* pos, const float* vel, const float* mass,
-    const float* radius, float* out, int n, int dim, float impulse,
-    void* stream) {
+    const float* radius, float* out, int n, int row0, int n_rows, int dim,
+    float impulse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || (dim != 2 && dim != 3))
+  if (n <= 0 || n_rows <= 0 || row0 < 0 || row0 > n - n_rows ||
+      (dim != 2 && dim != 3))
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t t0 = static_cast<size_t>(row0);
   if (dim == 2)
-    launch<2, false, false>(pos, vel, mass, radius, nullptr, pos, vel, mass,
-                            radius, nullptr, out, n, n, 1, n, 0, impulse, st);
+    launch<2, false, false>(pos + t0 * 2, vel + t0 * 2, mass + t0,
+                            radius + t0, nullptr, pos, vel, mass, radius,
+                            nullptr, out, n_rows, n, 1, n, 0, impulse, st);
   else
-    launch<3, false, false>(pos, vel, mass, radius, nullptr, pos, vel, mass,
-                            radius, nullptr, out, n, n, 1, n, 0, impulse, st);
+    launch<3, false, false>(pos + t0 * 3, vel + t0 * 3, mass + t0,
+                            radius + t0, nullptr, pos, vel, mass, radius,
+                            nullptr, out, n_rows, n, 1, n, 0, impulse, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,6 +7,11 @@ the backends as the JAX package does ("pallas" for the port's "cuda",
 checkpoint the port wrote; loading maps them back and drops the fields
 the port lacks (`pallas_interpret`). Resume is bitwise-deterministic where
 the step is (tests/test_torch_checkpoint_cli.py).
+
+Checkpoints do not depend on a mesh: `save_checkpoint` of a rank's
+`parallel.sharded.ShardedState` gathers the whole state and rank 0 writes
+it, and `load_checkpoint_sharded` places a file onto any mesh whose size
+divides N (tests/test_torch_sharding.py).
 """
 
 from __future__ import annotations
@@ -35,9 +40,24 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 def save_checkpoint(path: str, state: ParticleState,
                     config: Optional[SimConfig] = None) -> str:
     """Write state (+ config) to a .npz checkpoint; returns the real path
-    (np.savez appends '.npz' when missing, so the suffix is normalized)."""
+    (np.savez appends '.npz' when missing, so the suffix is normalized).
+    A sharded state is gathered, and written once, by rank 0; every rank
+    of its mesh must call this."""
     if not path.endswith(".npz"):
         path = path + ".npz"
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None:
+        # A rank's shard: every rank takes part in the gather, rank 0
+        # writes, and the others return once the file is complete.
+        import torch.distributed as dist
+
+        from nbodysim_tpu_torch.parallel.sharded import gather_state
+
+        whole = gather_state(state)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, whole, config)
+        dist.barrier(group=mesh.get_group(state.axis_name))
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"version": np.int32(_FORMAT_VERSION), **state.to_numpy()}
     if config is not None:
@@ -80,3 +100,14 @@ def load_checkpoint(
             config = SimConfig(**{k: v for k, v in cfg.items()
                                   if k in names})
     return state, config
+
+
+def load_checkpoint_sharded(path: str, mesh, axis_name: str = "shards"):
+    """Load a checkpoint onto `mesh`: every rank reads the file and keeps
+    its shard (`parallel.sharded.shard_state`), on its device of the mesh.
+    Same-mesh resume is bit for bit the uninterrupted run; another mesh
+    size resumes to the collectives' roundoff. Returns (state, config)."""
+    from nbodysim_tpu_torch.parallel.sharded import mesh_device, shard_state
+
+    state, config = load_checkpoint(path, device=mesh_device(mesh))
+    return shard_state(state, mesh, axis_name), config

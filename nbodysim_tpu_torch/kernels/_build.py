@@ -44,8 +44,9 @@ SIGNATURES = {
     # stream
     "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                   _i, _f, _f, _vp),
-    # pos, vel, mass, radius, out, n, dim, impulse, stream
-    "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp),
+    # pos, vel, mass, radius, out, n, row0, n_rows, dim, impulse, stream
+    "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
+                            _vp),
     # tpos, tvel, tmass, trad, tcell, spos, svel, smass, srad, scell, out,
     # scratch, n, s, dim, splits, max_cheb, impulse, stream
     "nb_rect_pair_deltas": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

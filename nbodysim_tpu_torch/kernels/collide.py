@@ -8,11 +8,14 @@ instantiated with and without K5's masks; its header says what bounds it on
 the H100 and how its design answers that.
 
   * `allpairs_collision_deltas` — K2's wrapper: Jacobi (dpos, dvel) for every
-    particle against all of them. On a CUDA tensor it launches the kernel (or
-    raises); on a CPU tensor, and only there, it runs the plain version.
-    `allpairs_collision_deltas.launches` counts kernel launches.
+    particle against all of them, or, with `rows`, for a target row range
+    against all of them (the multi-device step's gathered dense pass). On a
+    CUDA tensor it launches the kernel (or raises); on a CPU tensor, and only
+    there, it runs the plain version. `allpairs_collision_deltas.launches`
+    counts kernel launches.
   * `collision_deltas_plain` — the same function in plain torch, blocked,
-    built on `_pair_deltas` (the port of `physics/collisions._pair_deltas`).
+    built on `_pair_deltas` (the port of `physics/collisions._pair_deltas`),
+    with the same `rows`.
   * `rect_pair_deltas` — K5's wrapper: target-side deltas of n targets
     against m separate sources, masked to both masses > 0 and, unless
     `max_cheb` is None, to a Chebyshev cell distance <= `max_cheb`; the exact
@@ -120,9 +123,12 @@ def collision_deltas_plain(
     radius: torch.Tensor,
     *,
     impulse: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch Jacobi deltas (dpos, dvel), [N, D] each; temps bounded at
-    [1024, 4096, D]. Self pairs are no-ops in the pair math (d = v = 0)."""
+    [1024, 4096, D]. Self pairs are no-ops in the pair math (d = v = 0).
+    With rows = (row0, n_rows), only the targets [row0, row0 + n_rows)
+    against all N sources: [n_rows, D] each."""
 
     def kernel(tgt, src):
         tp, tv, tm, tr = tgt
@@ -137,9 +143,22 @@ def collision_deltas_plain(
         return dpos.sum(1), dvel.sum(1)
 
     fields = (pos, vel, mass, radius)
+    targets = fields
+    if rows is not None:
+        row0, n_rows = _check_rows(rows, pos.shape[0])
+        targets = tuple(f[row0:row0 + n_rows] for f in fields)
     dim = pos.shape[1]
-    return pairwise_blocked(kernel, fields, fields,
+    return pairwise_blocked(kernel, targets, fields,
                             out_dims=((dim,), (dim,)), dtype=pos.dtype)
+
+
+def _check_rows(rows: Tuple[int, int], n: int) -> Tuple[int, int]:
+    """(row0, n_rows) of a target row range inside [0, n)."""
+    row0, n_rows = int(rows[0]), int(rows[1])
+    if row0 < 0 or n_rows < 0 or row0 + n_rows > n:
+        raise ValueError(f"target rows [{row0}, {row0 + n_rows}) outside "
+                         f"[0, {n})")
+    return row0, n_rows
 
 
 def allpairs_collision_deltas(
@@ -149,10 +168,15 @@ def allpairs_collision_deltas(
     radius: torch.Tensor,
     *,
     impulse: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Jacobi collision deltas (dpos, dvel) on all particles, [N, D] f32."""
+    """Jacobi collision deltas (dpos, dvel) on all particles, [N, D] f32.
+    With rows = (row0, n_rows), K2's row-range form: the targets
+    [row0, row0 + n_rows) against all N sources, [n_rows, D] each (a rank's
+    own rows of the all-gathered arrays in the multi-device step)."""
     if pos.device.type == "cpu":
-        return collision_deltas_plain(pos, vel, mass, radius, impulse=impulse)
+        return collision_deltas_plain(pos, vel, mass, radius, impulse=impulse,
+                                      rows=rows)
     if pos.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {pos.device}")
     from nbodysim_tpu_torch.kernels._build import check, f32_args, library
@@ -167,15 +191,16 @@ def allpairs_collision_deltas(
             f"{tuple(r.shape)}: expected [N, D], [N, D], [N], [N], D in 2, 3")
     if n * dim >= 2 ** 31:
         raise ValueError("K2 indexes with 32-bit ints: N * D must be < 2^31")
-    if n == 0:
-        return torch.zeros_like(p), torch.zeros_like(p)
-    out = torch.empty((2, n, dim), dtype=torch.float32, device=device)
+    row0, n_rows = (0, n) if rows is None else _check_rows(rows, n)
+    if n_rows == 0:
+        return p.new_zeros((0, dim)), p.new_zeros((0, dim))
+    out = torch.empty((2, n_rows, dim), dtype=torch.float32, device=device)
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.nb_collision_deltas(
             p.data_ptr(), v.data_ptr(), m.data_ptr(), r.data_ptr(),
-            out.data_ptr(), n, dim, float(impulse), stream)
+            out.data_ptr(), n, row0, n_rows, dim, float(impulse), stream)
     check(status, "nb_collision_deltas")
     allpairs_collision_deltas.launches += 1
     return out[0], out[1]

@@ -124,14 +124,15 @@ def _synth_quad_channels(g3):
 
 
 def _pool_synth(g):
-    """2 x 2 sum-pool of [..., 2r, 2r, C] grids in the fixed order
+    """2 x 2 sum-pool of [..., 2h, 2w, C] grids in the fixed order
     ((a00 + a01) + a10) + a11, the JAX package's on the CPU. Used for the
     grids whose quadrupoles are synthesized (sx^2/m at absolute
     coordinates): `_center_channels` centres them by subtracting ~m c^2,
     which turns the pooled sums' last bits into ~1e-4 of the deep local
-    terms, so the order must be the reference's."""
-    r = g.shape[-2] // 2
-    a = g.reshape(g.shape[:-3] + (r, 2, r, 2, g.shape[-1]))
+    terms, so the order must be the reference's. Row bands of a grid (the
+    banded tree's) pool as the grid does."""
+    h, w = g.shape[-3] // 2, g.shape[-2] // 2
+    a = g.reshape(g.shape[:-3] + (h, 2, w, 2, g.shape[-1]))
     return ((a[..., 0, :, 0, :] + a[..., 0, :, 1, :])
             + a[..., 1, :, 0, :]) + a[..., 1, :, 1, :]
 

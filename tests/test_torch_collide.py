@@ -97,7 +97,7 @@ def test_collision_bounce_conserves_momentum():
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ toolchain")
 def test_pair_matches_native_oracle():
-    from nbodysim_tpu.oracle import oracle_resolve_pair
+    from nbodysim_tpu_torch.oracle import oracle_resolve_pair
 
     p1, p2 = [0.0, 0.0], [1.0, 0.5]
     v1, v2 = [2.0, 0.3], [-1.0, -0.2]
@@ -157,3 +157,18 @@ def test_staged_sources_match_raw(dim, offset):
     tol = 1e-5 * max(float(np.abs(vel + as_np(rv)).max()), 10.0)
     np.testing.assert_allclose(as_np(dp), np.asarray(jdp), atol=tol)
     np.testing.assert_allclose(as_np(dv), np.asarray(jdv), atol=tol)
+
+
+def test_row_range_is_the_full_pass_restricted():
+    """The row-range form of the plain pass (the CPU route of K2's row
+    form): the targets [row0, row0 + n) against all sources, bit for bit
+    the full pass's rows; a range outside the arrays raises."""
+    fields = tuple(as_t(a) for a in rand_cloud(300, 2, seed=9))
+    full = collision_deltas_plain(*fields, impulse=1.5)
+    for row0, n in ((0, 300), (100, 150), (299, 1), (7, 0)):
+        part = allpairs_collision_deltas(*fields, impulse=1.5,
+                                         rows=(row0, n))
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[row0:row0 + n])
+    with pytest.raises(ValueError, match="outside"):
+        collision_deltas_plain(*fields, impulse=1.5, rows=(250, 51))

@@ -114,6 +114,37 @@ def test_k2_matches_plain(dev, dim):
     assert float((p1 - p0).abs().max()) <= 1e-2 * float(p0.abs().max())
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("rows", [(0, 4096), (1024, 2048), (4000, 96)])
+def test_k2_row_range_matches_plain(dev, dim, rows):
+    """K2's row-range form (a rank's rows in the multi-device step's
+    gathered dense pass): those targets against all sources, massless
+    targets moved too, against the plain version and against K2's full
+    launch restricted to the same rows."""
+    g = _gen(dev, 20 + dim)
+    half = 37.0 if dim == 2 else 24.0
+    pos = _uniform(g, (4096, dim), -half, half)
+    vel = _uniform(g, (4096, dim), -5.0, 5.0)
+    mass = _uniform(g, (4096,), 0.5, 2.0)
+    mass[::16] = 0.0
+    radius = mass.clamp_min(0.5).pow(1 / 3) * 1.5
+    row0, n_rows = rows
+    sl = slice(row0, row0 + n_rows)
+    dp, dv = allpairs_collision_deltas(pos, vel, mass, radius, impulse=1.5,
+                                       rows=rows)
+    rp, rv = collision_deltas_plain(pos, vel, mass, radius, impulse=1.5,
+                                    rows=rows)
+    fp, fv = allpairs_collision_deltas(pos, vel, mass, radius, impulse=1.5)
+    torch.cuda.synchronize()
+    assert dp.shape == (n_rows, dim)
+    tol = 1e-5 * max(float((vel[sl] + rv).abs().max()), 10.0)
+    assert float((dp - rp).abs().max()) <= tol
+    assert float((dv - rv).abs().max()) <= tol
+    assert torch.equal(dp, fp[sl]) and torch.equal(dv, fv[sl])
+    massless = mass[sl] == 0.0
+    assert float(dv[massless].abs().max()) > 0.0
+
+
 def test_launch_counters_count_kernel_launches_only(dev):
     pos = torch.rand(100, 2, device=dev)
     mass = torch.rand(100, device=dev)

@@ -146,7 +146,7 @@ def test_set_dt_and_clamp_dt():
 def test_kepler_trajectory_matches_oracle():
     """N=2 Kepler, unsoftened, 200 steps of the reference step: the port
     tracks the native oracle step for step."""
-    from nbodysim_tpu.oracle import oracle_step
+    from nbodysim_tpu_torch.oracle import oracle_step
 
     cfg = nt.SimConfig(n=2, dt=0.02, softening=0.0, enable_collisions=False)
     state = nt.init_scene("kepler", cfg, device=CPU, central_mass=1e6,
