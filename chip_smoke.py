@@ -149,7 +149,18 @@ Phases, each printing its own lines:
                 a band; K1, K3 on the band window, K4 once a rank) and the
                 banded deep chain on phase 10's N=1M disc against the
                 single-device tree (2e-5 * max|a|), each rank's launches and
-                band window capacity, a checkpoint written at P=2. Then
+                band window capacity; the banded block pass on phase 8's
+                N=1M merger, the banded bucket grid on phase 6's N=1M
+                square (res 512) and the banded hash pass on phase 12's 3D
+                N=1M merger against the single-device passes' deltas
+                (1e-5 * max(max|v|, 10)), the banded octree on phase 9's
+                N=1M cube and the N=1M Plummer sphere's banded deep chain
+                and tiles (index_add_ deterministic) against
+                bh3_accelerations (2e-5 * max|a|), 2 make_sharded_step
+                steps each of the N=1M disc and Plummer sphere under the
+                configs Simulation resolves against Simulation.run(2)
+                (1e-6 * max|x|, 1e-5 * max|v|), each rank's launches and
+                work counts; a checkpoint written at P=2. Then
                 world size 1 over NCCL in this process: make_sharded_step
                 against Simulation.run(200) on the N=25k disc (bit for bit,
                 K1 and K2 200 times each, both steps/s), the sharded
@@ -158,9 +169,12 @@ Phases, each printing its own lines:
                 K3, K4 once a step), a sharded checkpoint at step 3 resumed
                 to step 6 (bit for bit) and the P=2 checkpoint resumed at
                 P=1 (2e-6 * max|x|, 2e-5 * max|v|). K1 at the ring's hop, K2
-                in its row range and K3 on the band window against their
-                plain versions, timed and bounded. Scratch in
-                build/smoke13/.
+                in its row range, K3 on the band window, and rank 0's first
+                band launch of K5 (the residual's pass (b) on its chunk of
+                sorted targets), K6 (its band of blocks) and K7 (its x-slab
+                window), K1 on the octree's outlier range and K4 on its
+                local rows against their plain versions, timed and
+                bounded. Scratch in build/smoke13/.
 
 Then one JSON line with every kernel's numbers (bounds from the H100's
 memory rate, f32 rate and MUFU rsqrt rate), the nvidia-smi line, and as the
@@ -374,17 +388,25 @@ def _sharded_worker(rank: int, jobs: dict) -> dict:
     from nbodysim_tpu_torch.io import save_checkpoint
     from nbodysim_tpu_torch.kernels.allpairs import (
         allpairs_accelerations, allpairs_accelerations_wide)
-    from nbodysim_tpu_torch.kernels.collide import allpairs_collision_deltas
+    from nbodysim_tpu_torch.kernels.collide import (
+        allpairs_collision_deltas, rect_pair_deltas)
+    from nbodysim_tpu_torch.kernels.collide_block import (
+        block_collision_deltas)
+    from nbodysim_tpu_torch.kernels.nearfield import bucket_stencil3
     from nbodysim_tpu_torch.parallel import (
-        comm, make_mesh, make_sharded_step, shard_state, tree)
+        comm, make_mesh, make_sharded_step, shard_state, tree, tree3d)
+    from nbodysim_tpu_torch.parallel import collisions as pcoll
     from nbodysim_tpu_torch.parallel.sharded import gather_state, mesh_device
+    from nbodysim_tpu_torch.physics import collisions as coll
 
     mesh = make_mesh()                 # the card, in the spawned gloo group
     dev = mesh_device(mesh)
     ax = comm.mesh_axis(mesh, "shards")
     real_k3 = tree.bucket_stencil
     counters = {"K1": allpairs_accelerations, "K2": allpairs_collision_deltas,
-                "K3": real_k3, "K4": allpairs_accelerations_wide}
+                "K3": real_k3, "K4": allpairs_accelerations_wide,
+                "K5": rect_pair_deltas, "K6": block_collision_deltas,
+                "K7": bucket_stencil3}
     out = {"rank": rank}
 
     def launches():
@@ -469,6 +491,114 @@ def _sharded_worker(rank: int, jobs: dict) -> dict:
     out["d_ms"] = events_ms(
         lambda: tree.banded_tree_accelerations(dpl, dml, dcfg, ax), 3)
 
+    # ---- the banded broad phases and the banded octree ----------------
+    # Each pass once to warm up, once with the launches counted, 3 times
+    # timed; rank 0 keeps the operands of the first band launch of K5 (the
+    # residual's pass (b) on its chunk of sorted targets where the pass
+    # runs one), K6 (its band of blocks) and K7 (its x-slab window).
+    kept = {}
+
+    def keeper(name, real, want=lambda *a, **kw: True):
+        def call(*a, **kw):
+            if rank == 0 and name not in kept and want(*a, **kw):
+                kept[name] = (tuple(
+                    tuple(t.cpu() for t in x) if isinstance(x, tuple)
+                    else x.cpu() for x in a), dict(
+                    (k, v.cpu() if torch.is_tensor(v) else v)
+                    for k, v in kw.items()))
+            return real(*a, **kw)
+        return call
+
+    def band_run(key, fn, det=False, iters=3):
+        """fn's result with the launches counted (index_add_ deterministic
+        with `det`, as for the single-device result it is held to), and
+        its time (index_add_ as the step runs it)."""
+        fn()                                           # warm-up
+        reset()
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            res = fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[key + "_launches"] = launches()
+        out[key + "_ms"] = events_ms(fn, iters)
+        return res
+
+    def local_t(t):
+        n_l = t.shape[0] // ax.size
+        return t[rank * n_l:(rank + 1) * n_l].contiguous()
+
+    n_l = jobs["bucket"]["pos"].shape[0] // ax.size
+    k5_band = keeper("K5", rect_pair_deltas, lambda tgt, src, **kw: (
+        tgt[0].shape[0] == n_l and kw.get("max_cheb") == 1))
+    saved = (coll.rect_pair_deltas, coll.block_collision_deltas,
+             tree3d.bucket_stencil3)
+    coll.rect_pair_deltas = k5_band
+    coll.block_collision_deltas = keeper("K6", block_collision_deltas)
+    tree3d.bucket_stencil3 = keeper("K7", bucket_stencil3)
+    try:
+        for key in ("block", "bucket", "hash"):
+            st = ParticleState.from_numpy(jobs[key], dev)
+            cfg_c = SimConfig(**jobs[key + "_cfg"])
+            args = [local_t(getattr(st, f))
+                    for f in ("pos", "vel", "mass", "radius")]
+            dp, dv = band_run(key, lambda: pcoll.sharded_collision_deltas(
+                *args, cfg_c, ax))
+            out[key + "_work"] = dict(pcoll.sharded_collision_deltas.work)
+            out[key] = (whole(dp), whole(dv))
+            if key == "hash" and "overflow_rows" not in out["hash_work"]:
+                # No residual on this input (the same on both ranks): its
+                # first K5 band launch.
+                coll.rect_pair_deltas = keeper("K5", rect_pair_deltas)
+                pcoll.sharded_collision_deltas(*args, cfg_c, ax)
+            del st, args, dp, dv
+
+        for key in ("cube", "plummer"):
+            cfg_t = SimConfig(**jobs[key + "_cfg"])
+            pl, ml = local(jobs[key]["pos"]), local(jobs[key]["mass"])
+            acc = band_run(key, lambda: tree3d.banded_tree3_accelerations(
+                pl, ml, cfg_t, ax), det=key == "plummer")
+            out[key + "_work"] = dict(tree3d.banded_tree3_accelerations.work)
+            out[key] = whole(acc)
+    finally:
+        (coll.rect_pair_deltas, coll.block_collision_deltas,
+         tree3d.bucket_stencil3) = saved
+    if rank == 0:
+        out["band_operands"] = kept
+
+    # The slice's path end to end: 2 sharded steps of the N=1M flagship
+    # disc and of the N=1M Plummer sphere under the configs Simulation
+    # resolved for them, index_add_ deterministic as in the parent's runs;
+    # then 2 more steps timed with index_add_ as the step runs it.
+    for key in ("disc_steps", "plummer_steps"):
+        cfg_s = SimConfig(**jobs[key + "_cfg"])
+        sst = shard_state(ParticleState.from_numpy(jobs[key], dev), mesh)
+        sstep = make_sharded_step(cfg_s, mesh)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset()
+            for _ in range(2):
+                sst = sstep(sst)
+            out[key + "_launches"] = launches()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[key + "_work"] = {
+            "tree": dict((tree3d.banded_tree3_accelerations if cfg_s.dim == 3
+                          else tree.banded_tree_accelerations).work),
+            "collisions": dict(pcoll.sharded_collision_deltas.work)}
+        g = gather_state(sst)
+        out[key] = {"pos": g.pos.cpu().numpy(), "vel": g.vel.cpu().numpy(),
+                    "frame": int(g.frame)}
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(2):
+            sst = sstep(sst)
+        ev1.record()
+        torch.cuda.synchronize()
+        out[key + "_ms"] = ev0.elapsed_time(ev1) / 2
+        del sst, g
+
     # A checkpoint written at P=2 after 3 steps, and 3 more steps (the
     # reference the parent's P=1 resume is held to).
     for _ in range(3):
@@ -481,7 +611,8 @@ def _sharded_worker(rank: int, jobs: dict) -> dict:
                      "frame": int(g.frame)}
     out["host_staged"] = sorted(comm.HOST_STAGED)
     if rank != 0:
-        for k in ("disc", "u_acc", "d_acc", "ck_ref"):
+        for k in ("disc", "u_acc", "d_acc", "ck_ref", "block", "bucket",
+                  "hash", "cube", "plummer", "disc_steps", "plummer_steps"):
             out.pop(k)
     return out
 
@@ -497,6 +628,7 @@ def sharded_phase(ctx) -> list:
     import numpy as np
     import torch
     import torch.distributed as dist
+    import torch.nn.functional as F
 
     from nbodysim_tpu_torch import SimConfig, Simulation
     from nbodysim_tpu_torch.io import load_checkpoint_sharded, save_checkpoint
@@ -504,15 +636,23 @@ def sharded_phase(ctx) -> list:
         allpairs_accelerations, allpairs_accelerations_plain,
         allpairs_accelerations_wide)
     from nbodysim_tpu_torch.kernels.collide import (
-        allpairs_collision_deltas, collision_deltas_plain)
+        allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
+        rect_pair_deltas_plain)
+    from nbodysim_tpu_torch.kernels.collide_block import (
+        block_collision_deltas, block_collision_deltas_plain, lead_offsets,
+        lex_searchsorted)
     from nbodysim_tpu_torch.kernels.nearfield import (
-        bucket_stencil, bucket_stencil_plain)
+        bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
+        bucket_stencil_plain)
     from nbodysim_tpu_torch.parallel import (
         comm, make_mesh, make_sharded_step, prime_accelerations_sharded,
         shard_state)
     from nbodysim_tpu_torch.parallel.sharded import make_sharded_rollout
     from nbodysim_tpu_torch.physics import barneshut as bh
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
+    from nbodysim_tpu_torch.physics import collisions as coll
     from nbodysim_tpu_torch.physics.integrators import make_step
+    from nbodysim_tpu_torch.scenes import init_scene
 
     dev, say_ = ctx.dev, (lambda m: say("sharded", m))
     t13 = time.perf_counter()
@@ -521,7 +661,9 @@ def sharded_phase(ctx) -> list:
         shutil.rmtree(work)
     work.mkdir(parents=True)
     counters = {"K1": allpairs_accelerations, "K2": allpairs_collision_deltas,
-                "K3": bucket_stencil, "K4": allpairs_accelerations_wide}
+                "K3": bucket_stencil, "K4": allpairs_accelerations_wide,
+                "K5": rect_pair_deltas, "K6": block_collision_deltas,
+                "K7": bucket_stencil3}
 
     def reset():
         torch.cuda.synchronize()
@@ -551,6 +693,44 @@ def sharded_phase(ctx) -> list:
     dstate, dcfg = ctx.disc_deep
     ck2 = str(work / "ck_p2.npz")
 
+    # This slice's inputs: phase 8's N=1M galaxy merger (the block pass)
+    # and N=1M uniform bucket input, phase 12's 3D N=1M merger (the hash
+    # pass, its velocities drawn as there), phase 9's N=1M cube, and
+    # Simulation's N=1M Plummer sphere (phase 11's) and N=1M flagship disc
+    # under the configs it resolves, for the octree eval and the steps.
+    merger3 = init_scene("galaxy_merger", SimConfig(n=1 << 20, dim=3),
+                         device=dev)
+    g123 = torch.Generator(device=dev)
+    g123.manual_seed(123)
+    merger3 = merger3.replace(vel=merger3.vel + (-5.0 + (5.0 - -5.0) * (
+        torch.rand(merger3.vel.shape, generator=g123, device=dev))))
+    hcfg = SimConfig(n=1 << 20, dim=3, collision_broad_phase="hash")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        psim = Simulation(SimConfig(n=1 << 20, dim=3), scene="plummer",
+                          virialize=False)
+        dsim = Simulation(SimConfig(n=1 << 20), scene="uniform_disc")
+    band_in = {
+        "block": (ctx.merger, ctx.merger_cfg), "bucket": (ctx.ustate,
+                                                          ctx.ucfg),
+        "hash": (merger3, hcfg)}
+    # Phase 9's cube, from its own generator (seed 9) as there.
+    cube_gen = torch.Generator(device=dev)
+    cube_gen.manual_seed(9)
+    cube_pos = -30000.0 + (30000.0 - -30000.0) * torch.rand(
+        (1 << 20, 3), generator=cube_gen, device=dev)
+    cube_mass = 0.1 + (10.0 - 0.1) * torch.rand(
+        (1 << 20,), generator=cube_gen, device=dev)
+    tree_in = {"cube": (cube_pos, cube_mass,
+                        SimConfig(n=1 << 20, dim=3, enable_collisions=False)),
+               "plummer": (psim.state.pos, psim.state.mass, psim.config)}
+    say_(f"N=1M disc under auto: {dsim.config.force_backend}, deep "
+         f"{dsim.config.bh_deep_levels}, collisions "
+         f"{dsim.config.collision_broad_phase}; N=1M Plummer sphere: "
+         f"{psim.config.force_backend}, deep {psim.config.bh_deep_levels}, "
+         f"collisions {psim.config.collision_broad_phase}, bh_nf_sparse "
+         f"{psim.config.bh_nf_sparse}")
+
     # ---- (b) world size 2 over gloo, both ranks on the one card --------
     jobs = {"disc": _np_state(st0), "disc_cfg": _cfg_fields(cfg25),
             "upos": ctx.upos.cpu().numpy(), "umass": ctx.umass.cpu().numpy(),
@@ -558,6 +738,15 @@ def sharded_phase(ctx) -> list:
             "dpos": dstate.pos.cpu().numpy(),
             "dmass": dstate.mass.cpu().numpy(), "d_cfg": _cfg_fields(dcfg),
             "ck": ck2}
+    for key, (st_, cfg_) in band_in.items():
+        jobs[key], jobs[key + "_cfg"] = _np_state(st_), _cfg_fields(cfg_)
+    for key, (p_, m_, cfg_) in tree_in.items():
+        jobs[key] = {"pos": p_.cpu().numpy(), "mass": m_.cpu().numpy()}
+        jobs[key + "_cfg"] = _cfg_fields(cfg_)
+    for key, sim in (("disc_steps", dsim), ("plummer_steps", psim)):
+        jobs[key], jobs[key + "_cfg"] = (_np_state(sim.state),
+                                         _cfg_fields(sim.config))
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = comm.spawn(_sharded_worker, 2, (jobs,), backend="gloo",
                        timeout_s=300.0, threads=4)
@@ -609,6 +798,81 @@ def sharded_phase(ctx) -> list:
               "(deterministic index_add_)")
     say_(f"banded deep chain N=1M disc at P=2: {r0['d_ms']:.4f} ms on rank "
          f"0 (CUDA events, 3 after 1; not a scaling figure)")
+
+    # ---- this slice: the banded broad phases, the banded octree --------
+    for r in ranks:
+        for key in ("block", "bucket", "hash", "cube", "plummer"):
+            say_(f"rank {r['rank']}: banded {key} launches "
+                 f"{r[key + '_launches']}, work {r[key + '_work']}")
+        for key in ("disc_steps", "plummer_steps"):
+            say_(f"rank {r['rank']}: {key} (2 steps) launches "
+                 f"{r[key + '_launches']}, work {r[key + '_work']}")
+        require(r["block_launches"]["K6"] == 1
+                and r["block_work"]["band_blocks"] > 0,
+                f"rank {r['rank']}: the banded block pass launched "
+                f"{r['block_launches']}, work {r['block_work']}")
+        require(r["hash_launches"]["K5"] >= 2 and r["cube_launches"]["K7"] == 1
+                and r["plummer_launches"]["K7"] == 1,
+                f"rank {r['rank']}: banded hash K5 "
+                f"{r['hash_launches']['K5']}, octree K7 "
+                f"{r['cube_launches']['K7']} / "
+                f"{r['plummer_launches']['K7']}")
+        pl_l, dl_l = r["plummer_steps_launches"], r["disc_steps_launches"]
+        require(pl_l["K5"] >= 2 and pl_l["K6"] == 2 and pl_l["K7"] == 2
+                and pl_l["K1"] == 2 and pl_l["K4"] == 2,
+                f"rank {r['rank']}: the Plummer steps launched {pl_l}, "
+                f"expected K1, K4, K6, K7 once a step and K5")
+        require(dl_l["K1"] == 2 and dl_l["K3"] == 2 and dl_l["K4"] == 2
+                and dl_l["K5"] >= 2,
+                f"rank {r['rank']}: the disc steps launched {dl_l}, "
+                f"expected K1, K3, K4 once a step and K5")
+
+    # The single-device pass's deltas (pos + dpos - pos would round them to
+    # the positions' ulp, 0.03 at the mergers' 3e5).
+    single = {"block": coll._block_deltas, "bucket": coll._bucket_deltas,
+              "hash": coll._grid_deltas}
+    for key, (st_, cfg_) in band_in.items():
+        ref = single[key](st_, cfg_, True)
+        tol = 1e-5 * max(float(st_.vel.abs().max()), 10.0)
+        err = max(float(np.abs(g - b.cpu().numpy()).max())
+                  for g, b in zip(r0[key], ref))
+        ok = err <= tol and all(np.isfinite(g).all() for g in r0[key])
+        say_(f"banded {key} pass ({cfg_.collision_broad_phase}, "
+             f"{cfg_.dim}D N=1M) at P=2 vs the single-device pass: "
+             f"max_abs_err {err:.3e} (tol 1e-5 * max(max|v|, 10) = "
+             f"{tol:.3e}) {'ok' if ok else 'FAIL'}; {r0[key + '_ms']:.4f} ms "
+             f"on rank 0 (CUDA events, 3 after 3; not a scaling figure)")
+        require(ok, f"the banded {key} pass disagrees with the single device")
+        del ref
+    for key, (p_, m_, cfg_) in tree_in.items():
+        torch.use_deterministic_algorithms(key == "plummer", warn_only=True)
+        try:
+            ref = bh3.bh3_accelerations(p_, m_, cfg_)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        acc_close(r0[key], ref, f"banded octree {key} N=1M, P=2"
+                  + (" (deep chain, tiles; deterministic index_add_)"
+                     if key == "plummer" else ""))
+        say_(f"banded octree {key} at P=2: {r0[key + '_ms']:.4f} ms on rank "
+             f"0 (CUDA events, 3 after 3, index_add_ as the step runs it; "
+             f"not a scaling figure)")
+        del ref
+
+    # The slice's path end to end: Simulation's 2 steps on one device.
+    for key, sim in (("disc_steps", dsim), ("plummer_steps", psim)):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            sim.run(2)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(r0[key]["frame"] == int(sim.state.frame), f"{key} frame")
+        close(r0[key], np_pv(sim.state), f"{key}: 2 make_sharded_step steps "
+              f"at P=2 vs Simulation.run(2), N=1M",
+              v_abs=1e-5 * float(sim.state.vel.abs().max()))
+        say_(f"{key}: {r0[key + '_ms']:.4f} ms a step on rank 0 (CUDA "
+             f"events over steps 3-4, index_add_ as the step runs it; not a "
+             f"scaling figure)")
+    del psim, dsim, merger3
 
     # ---- (a) world size 1 over NCCL, in this process ------------------
     dist.init_process_group("nccl", init_method=f"file://{work}/pg1",
@@ -786,14 +1050,143 @@ def sharded_phase(ctx) -> list:
     k3_bnd = ctx.pair_bound(pairs, 4.0 * (3 * float(counts.sum())
                                           + counts.numel()
                                           + 2 * rows_c * res_w * cap))
+
+    # The band launch forms of K5, K6 and K7 (rank 0's first band launch of
+    # each) against their plain versions.
+    ops = r0["band_operands"]
+
+    def on_dev(x):
+        if isinstance(x, tuple):
+            return tuple(t.to(dev) for t in x)
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    a5, kw5 = ([on_dev(x) for x in ops["K5"][0]],
+               {k: on_dev(v) for k, v in ops["K5"][1].items()})
+    got = rect_pair_deltas(*a5, **kw5)
+    want = rect_pair_deltas_plain(*a5, **kw5)
+    vmax = max(float(a5[0][1].abs().max()), 10.0)
+    k5_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(k5_err <= 1e-5 * vmax,
+            f"K5 band launch: {k5_err:.3e} > {1e-5 * vmax:.3e}")
+    k5_ms = ctx.time_ms(lambda: rect_pair_deltas(*a5, **kw5), 5)
+    k5_plain = ctx.time_ms(lambda: rect_pair_deltas_plain(*a5, **kw5), 1)
+    t5, s5 = a5
+    k5_pairs = k5_needed_pairs(t5, s5, kw5["max_cheb"])
+    dim5 = kw5["dim"]
+    k5_cols = 2 * dim5 + 2 + (0 if kw5["max_cheb"] is None else dim5)
+    k5_bnd = ctx.bound(4.0 * (k5_cols * (t5[0].shape[0] + s5[0].shape[0])
+                              + 2 * dim5 * t5[0].shape[0]), 7.0 * k5_pairs)
+    k5_what = (f"{t5[0].shape[0]} x {s5[0].shape[0]}, "
+               + ("the residual's pass (b) on rank 0's chunk of sorted "
+                  "targets" if kw5["max_cheb"] == 1 else "a big-body pass")
+               + f", {dim5}D")
+
+    a6, kw6 = [on_dev(x) for x in ops["K6"][0]], ops["K6"][1]
+    planes6, keys6, wlo6, _ = a6
+    dim6, n_tot6 = keys6.shape
+    got = block_collision_deltas(*a6, **kw6)
+    want = block_collision_deltas_plain(*a6, **kw6)
+    vmax = max(float(planes6[dim6:2 * dim6].abs().max()), 10.0)
+    k6_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(k6_err <= 1e-5 * vmax,
+            f"K6 band launch: {k6_err:.3e} > {1e-5 * vmax:.3e}")
+    k6_ms = ctx.time_ms(lambda: block_collision_deltas(*a6, **kw6), 5)
+    k6_plain = ctx.time_ms(lambda: block_collision_deltas_plain(*a6, **kw6),
+                           1)
+    t_blk, blk0, nbl = kw6["t_blk"], kw6["blk0"], kw6["nb_loc"]
+    r_lo, r_hi = blk0 * t_blk, (blk0 + nbl) * t_blk
+    ok6 = planes6[-1] > 0
+    cum6 = F.pad(torch.cumsum(ok6.to(torch.int64), 0), (1, 0))
+    tsel = ok6.clone()
+    tsel[:r_lo] = False
+    tsel[r_hi:] = False
+    kt = keys6[:, tsel]
+    offs6 = torch.tensor(lead_offsets(dim6), dtype=torch.int32, device=dev)
+    lead6 = [kt[a][:, None] + offs6[None, :, a] for a in range(dim6 - 1)]
+    tail6 = kt[dim6 - 1][:, None].expand(-1, offs6.shape[0])
+    lo6 = lex_searchsorted(list(keys6), lead6 + [tail6 - 1], False, n_tot6)
+    hi6 = lex_searchsorted(list(keys6), lead6 + [tail6 + 1], True, n_tot6)
+    k6_pairs = float((cum6[hi6.long()] - cum6[lo6.long()]).sum()
+                     - kt.shape[1])
+    k6_bnd = ctx.bound(4.0 * (n_tot6 * (2 * dim6 + 3) + n_tot6 * dim6
+                              + 2 * (r_hi - r_lo) * dim6
+                              + 2 * wlo6.numel()), 7.0 * k6_pairs)
+
+    a7, kw7 = [on_dev(x) for x in ops["K7"][0]], {
+        k: on_dev(v) for k, v in ops["K7"][1].items()}
+    counts7, rr7, eps7, rows7 = (kw7["counts"], kw7["rr"], kw7["eps_sq"],
+                                 kw7["center_rows"])
+    k7_err = ctx.near_case("sharded", f"x-slab window ({tuple(a7[0].shape)},"
+                           f" rank 0 of 2)", tuple(a7), counts7, eps7, rows7,
+                           rr7)
+    k7_ms = ctx.time_ms(lambda: bucket_stencil3(*a7, **kw7), 10)
+    k7_plain = ctx.time_ms(lambda: bucket_stencil3_plain(
+        *a7, rr7, eps7, rows7), 2)
+    res7, cap7 = a7[0].shape[1], a7[0].shape[3]
+    k7_pairs, _, _ = near_pairs(counts7, rows7, rr7, cap7)
+    k7_bnd = ctx.bound(4.0 * (4 * float(counts7.sum()) + counts7.numel()
+                              + 3 * rows7 * res7 * res7 * cap7),
+                       19.0 * k7_pairs, k7_pairs)
+
+    # K1 on rank 0's range of the octree's outlier indices (all N
+    # sources) and K4 on its local rows (the outliers as sources), at the
+    # shapes the banded octree gives them on phase 9's cube at P=2.
+    ccfg = tree_in["cube"][2]
+    n3c = cube_pos.shape[0]
+    ext3 = bh._extract_heavy_outliers(cube_pos, cube_mass)
+    out_i3 = ext3["out_i"]
+    oi3 = out_i3[:-(-out_i3.shape[0] // 2)]
+    nh_mass = torch.where(ext3["is_heavy"], 0.0, cube_mass)
+    osm3 = torch.where(ext3["out_sel"] & ~ext3["is_heavy"][out_i3],
+                       cube_mass[out_i3], 0.0)
+    rows3 = cube_pos[:cube_pos.shape[0] // 2]
+    kw3 = dict(eps_sq=ccfg.eps_sq, g_const=ccfg.g_const)
+    band_k = {
+        "K1": (lambda: allpairs_accelerations(
+            cube_pos[oi3], None, src_pos=cube_pos, src_mass=nh_mass, **kw3),
+               lambda: allpairs_accelerations_plain(
+            cube_pos[oi3], None, src_pos=cube_pos, src_mass=nh_mass, **kw3),
+               float(oi3.shape[0]) * cube_pos.shape[0],
+               4.0 * (4 * cube_pos.shape[0] + 6 * oi3.shape[0])),
+        "K4": (lambda: allpairs_accelerations_wide(
+            rows3, cube_pos[out_i3], osm3, **kw3),
+               lambda: allpairs_accelerations_plain(
+            rows3, None, src_pos=cube_pos[out_i3], src_mass=osm3, **kw3),
+               float(rows3.shape[0]) * out_i3.shape[0],
+               4.0 * (6 * rows3.shape[0] + 4 * out_i3.shape[0]))}
+    band_res = {}
+    for k, (kern, plain, pairs, nbytes) in band_k.items():
+        got, want = kern(), plain()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        require(err <= tol, f"{k} on the octree's band: {err:.3e} > "
+                f"{tol:.3e}")
+        band_res[k] = (err, ctx.time_ms(kern, 10), ctx.time_ms(plain, 1),
+                       ctx.bound(nbytes, 19.0 * pairs, pairs))
+    del cube_pos, cube_mass, tree_in
+
     for name, ms, plain_ms, bnd in (("K1 ring hop", k1_ms, k1_plain, k1_bnd),
                                     ("K2 row range", k2_ms, k2_plain,
                                      k2_bnd),
                                     ("K3 band window", k3_ms, k3_plain,
-                                     k3_bnd)):
+                                     k3_bnd),
+                                    (f"K5 band ({k5_what})", k5_ms, k5_plain,
+                                     k5_bnd),
+                                    (f"K6 band (blocks {blk0}..{blk0 + nbl}"
+                                     f" of {n_tot6 // t_blk})", k6_ms,
+                                     k6_plain, k6_bnd),
+                                    ("K7 x-slab window", k7_ms, k7_plain,
+                                     k7_bnd),
+                                    (f"K1 octree outlier range "
+                                     f"({oi3.shape[0]} x {n3c})",
+                                     *band_res["K1"][1:]),
+                                    (f"K4 octree local rows "
+                                     f"({rows3.shape[0]} x {out_i3.shape[0]})",
+                                     *band_res["K4"][1:])):
         say_(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
              f"{bnd[0]:.4f} ms ({bnd[1]})")
     say_(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    pl_l = r0["plummer_steps_launches"]
     return [
         ctx.entry(f"K1 allpairs_accelerations (ring hop, P=2: {n_l} x {n_l}"
                   f"; launches: one step, rank 0)",
@@ -812,6 +1205,36 @@ def sharded_phase(ctx) -> list:
                   "nbodysim_tpu_torch/csrc/nearfield.cu",
                   "nbodysim_tpu/kernels/nearfield.py:49",
                   r0["u_launches"]["K3"], k3_err, k3_ms, k3_plain, k3_bnd),
+        ctx.entry(f"K5 rect_pair_deltas (band form, P=2: {k5_what}; "
+                  f"launches: the N=1M Plummer sphere's 2 sharded steps, "
+                  f"rank 0)", "nbodysim_tpu_torch/csrc/collide.cu",
+                  "nbodysim_tpu/kernels/collide.py:250", pl_l["K5"], k5_err,
+                  k5_ms, k5_plain, k5_bnd),
+        ctx.entry(f"K6 block_collision_deltas (band of blocks, P=2: blocks "
+                  f"{blk0}..{blk0 + nbl} of {n_tot6 // t_blk}, N=1M merger; "
+                  f"launches: the N=1M Plummer sphere's 2 sharded steps, "
+                  f"rank 0)", "nbodysim_tpu_torch/csrc/collide_block.cu",
+                  "nbodysim_tpu/kernels/collide_block.py:47", pl_l["K6"],
+                  k6_err, k6_ms, k6_plain, k6_bnd),
+        ctx.entry(f"K7 bucket_stencil3 (x-slab window, P=2: "
+                  f"{tuple(a7[0].shape)}, rr={rr7}, N=1M cube; launches: the "
+                  f"N=1M Plummer sphere's 2 sharded steps, rank 0)",
+                  "nbodysim_tpu_torch/csrc/nearfield3.cu",
+                  "nbodysim_tpu/kernels/nearfield.py:262", pl_l["K7"],
+                  k7_err, k7_ms, k7_plain, k7_bnd),
+        ctx.entry(f"K1 allpairs_accelerations (the banded octree's outlier "
+                  f"range, P=2: {oi3.shape[0]} x {n3c}, D=3, N=1M cube; "
+                  f"launches: the N=1M Plummer sphere's 2 sharded steps, "
+                  f"rank 0)", "nbodysim_tpu_torch/csrc/allpairs.cu",
+                  "nbodysim_tpu/kernels/allpairs.py:56", pl_l["K1"],
+                  *band_res["K1"]),
+        ctx.entry(f"K4 allpairs_accelerations_wide (the banded octree's "
+                  f"local rows, P=2: {rows3.shape[0]} x {out_i3.shape[0]}, "
+                  f"D=3, N=1M cube; launches: the N=1M Plummer sphere's 2 "
+                  f"sharded steps, rank 0)",
+                  "nbodysim_tpu_torch/csrc/allpairs.cu",
+                  "nbodysim_tpu/kernels/allpairs.py:105", pl_l["K4"],
+                  *band_res["K4"]),
     ]
 
 
@@ -3455,7 +3878,10 @@ def main() -> None:
     kernels.extend(sharded_phase(SimpleNamespace(
         dev=dev, time_ms=time_ms, bound=bound, pair_bound=pair_bound,
         near_case=near_case, entry=entry, upos=upos, umass=umass, tcfg=tcfg,
-        disc_deep=disc1m)))
+        disc_deep=disc1m, merger=merger,
+        merger_cfg=mcfg.replace(collision_broad_phase="block",
+                                collision_cell_size=0.0), ustate=ustate,
+        ucfg=ucfg)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,7 @@ from nbodysim_tpu_torch.physics.barneshut import (
     _deep_targets,
     _extract_heavy_outliers,
     _fold_aggregate_ring,
+    _halo_cap,
     _l2l_upsample,
     _m2l_conv,
     _m2l_level,
@@ -72,9 +73,11 @@ from nbodysim_tpu_torch.physics.barneshut import (
     _resolve_levels,
     _resolve_radius,
     _resolve_tile_params,
+    _scatter_cap,
     _synth_quad_channels,
     _taylor_eval,
     _tile_apply,
+    _tile_candidates,
     _tile_chain,
     _tile_scatter,
     _tile_select,
@@ -99,6 +102,50 @@ def compact_capacity(n: int, rows_w: int, res: int,
         slack = _BAND_SLACK
     cap = min(n, -(-slack * n * rows_w // res) + 1)
     return min(n, -(-cap // 1024) * 1024)
+
+
+def _kept_halo(cands, s_cap: int) -> torch.Tensor:
+    """The rows the single device's tile scatter keeps as halo sources
+    (`physics.barneshut._tile_eval`): the first `_halo_cap(m)` rows, in
+    index order, on an edge whose neighbour tile is selected, where m is
+    the rows it scatters, the compacted source rows (`s_cap`) where they
+    fit, else all N. `cands`: `_tile_candidates` (`_tile_candidates3`) of
+    every row, home first. Every rank computes it from the same replicated
+    arrays, so the banded scatter, over whichever rows it runs, keeps the
+    single device's halo: the cap is the one that changes results."""
+    on_edge = cands[1][0]
+    for ok, _ in cands[2:]:
+        on_edge = on_edge | ok
+    n = on_edge.shape[0]
+    fits = s_cap < n and int((cands[0][0] | on_edge).sum()) <= s_cap
+    return on_edge & (torch.cumsum(on_edge, 0)
+                      <= _halo_cap(s_cap if fits else n))
+
+
+def _band_tile_scatter(scatter, pay, bulk_pos, ci_f, tile_slot, orig, geo,
+                       kept, in_band, si, valid_d, c_deep: int,
+                       axis: comm.Axis) -> torch.Tensor:
+    """The tiles' moment grids (`scatter`: `_tile_scatter` or
+    `_tile_scatter3`, with `geo` its trailing arguments), halo sources
+    limited to `kept`. Without compaction (c_deep >= N) every rank runs the
+    full scatter; else each rank scatters its band's particles, over its
+    compacted set `si` (`valid_d`; None where it did not fit) when its kept
+    halo rows stay under that scatter's own cap, else over all rows masked
+    to the band, and one psum sums the disjoint pieces (outside the
+    branch)."""
+    n = pay.shape[0]
+    if c_deep >= n:
+        return scatter(pay, bulk_pos, ci_f, tile_slot, orig, *geo,
+                       src_mask=kept)
+    if si is not None and int((valid_d & kept[si]).sum()) <= _halo_cap(
+            c_deep):
+        g = scatter(torch.where(valid_d[:, None], pay[si], 0.0),
+                    bulk_pos[si], ci_f[si], tile_slot, orig, *geo,
+                    src_mask=valid_d & kept[si])
+    else:
+        g = scatter(torch.where(in_band[:, None], pay, 0.0), bulk_pos, ci_f,
+                    tile_slot, orig, *geo, src_mask=in_band & kept)
+    return comm.psum(g, axis)
 
 
 def banded_tree_accelerations(pos_l, mass_l, config: SimConfig,
@@ -473,8 +520,8 @@ def _banded_eval(pos, mass, pos_l, *, levels, radius, eps_sq, g_const,
         # grids); my band's rows of every tile window of the level-D locals
         # (zeros elsewhere) and one psum assemble what the single device
         # slices from the whole grid. The tile grids' moments are scattered
-        # per band and psummed; the refined targets are evaluated on my
-        # band's rows.
+        # per band, with the single device's halo sources, and psummed; the
+        # refined targets are evaluated on my band's rows.
         tk, tt, tc = tile_params
         if tk:
             hh = radius
@@ -493,58 +540,33 @@ def _banded_eval(pos, mass, pos_l, *, levels, radius, eps_sq, g_const,
                                 axis)
 
             geo = (corner, size, build_levels, radius, tk, tt, tc)
-            if c_deep >= n:
-                # No compaction: the full scatter, the same on every rank.
-                g3k = _tile_scatter(pay, bulk_pos, ci_f, tile_slot, orig,
-                                    *geo)
-                local_w = _tile_chain(local_w, g3k, orig, corner, size,
-                                      build_levels, radius, eps_sq, tk, tt,
-                                      tc)
+            kept = _kept_halo(_tile_candidates(ci_f, tile_slot, tt, tc,
+                                               radius, res_b // tt),
+                              _scatter_cap(n))
+            g3k = _band_tile_scatter(
+                _tile_scatter, pay, bulk_pos, ci_f, tile_slot, orig, geo,
+                kept, in_band, si if compact_deep else None,
+                valid_d if compact_deep else None, c_deep, axis)
+            local_w = _tile_chain(local_w, g3k, orig, corner, size,
+                                  build_levels, radius, eps_sq, tk, tt, tc)
+            if compact_deep:
+                refined_s, far_s, near_s = _tile_apply(
+                    pos[si], pay[si], bulk_pos[si], ci_f[si], b_par[si],
+                    local_w, g3k, tile_slot, orig, corner, size,
+                    build_levels, radius, eps_sq, tk, tt, tc)
+                sel = valid_d & refined_s
+                contrib = torch.cat([contrib, contrib.new_zeros(1, 2)])
+                contrib[torch.where(sel, si, n)] = g_const * (far_s + near_s)
+                contrib = contrib[:n]
+            else:
                 refined, far_ref, near_ref = _tile_apply(
-                    pos, pay, bulk_pos, ci_f, b_par, local_w, g3k,
-                    tile_slot, orig, corner, size, build_levels, radius,
-                    eps_sq, tk, tt, tc)
+                    pos, pay, bulk_pos, ci_f, b_par, local_w, g3k, tile_slot,
+                    orig, corner, size, build_levels, radius, eps_sq, tk, tt,
+                    tc)
                 ref_part = torch.where(in_band[:, None],
                                        g_const * (far_ref + near_ref), 0.0)
                 contrib = torch.where((refined & in_band)[:, None],
                                       ref_part, contrib)
-            else:
-                # Each rank scatters its band's particles (the compacted
-                # set where it fits, else all rows masked to the band); the
-                # psum sits outside the branch.
-                if compact_deep:
-                    pay_s = torch.where(valid_d[:, None], pay[si], 0.0)
-                    g3k = _tile_scatter(pay_s, bulk_pos[si], ci_f[si],
-                                        tile_slot, orig, *geo,
-                                        src_mask=valid_d)
-                else:
-                    g3k = _tile_scatter(
-                        torch.where(in_band[:, None], pay, 0.0), bulk_pos,
-                        ci_f, tile_slot, orig, *geo, src_mask=in_band)
-                g3k = comm.psum(g3k, axis)
-                local_w = _tile_chain(local_w, g3k, orig, corner, size,
-                                      build_levels, radius, eps_sq, tk, tt,
-                                      tc)
-                if compact_deep:
-                    refined_s, far_s, near_s = _tile_apply(
-                        pos[si], pay[si], bulk_pos[si], ci_f[si], b_par[si],
-                        local_w, g3k, tile_slot, orig, corner, size,
-                        build_levels, radius, eps_sq, tk, tt, tc)
-                    sel = valid_d & refined_s
-                    contrib = torch.cat([contrib, contrib.new_zeros(1, 2)])
-                    contrib[torch.where(sel, si, n)] = g_const * (
-                        far_s + near_s)
-                    contrib = contrib[:n]
-                else:
-                    refined, far_ref, near_ref = _tile_apply(
-                        pos, pay, bulk_pos, ci_f, b_par, local_w, g3k,
-                        tile_slot, orig, corner, size, build_levels, radius,
-                        eps_sq, tk, tt, tc)
-                    ref_part = torch.where(
-                        in_band[:, None], g_const * (far_ref + near_ref),
-                        0.0)
-                    contrib = torch.where((refined & in_band)[:, None],
-                                          ref_part, contrib)
 
     # ---------------- exact forces ON outliers (index-range sharded) ----
     k_out = out_i.shape[0]

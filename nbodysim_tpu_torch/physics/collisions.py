@@ -174,16 +174,20 @@ def _big_body_corrections(dpos_s, dvel_s, fields_s: Fields, big_s,
     return dpos_s, dvel_s
 
 
-def _residual_corrections(dpos_s, dvel_s, fields_s: Fields, in_cover, big_s,
-                          impulse: float, dim: int, use_kernel: bool):
-    """Exact residual for the smalls the broad phase could not cover: the
-    first `_OVERFLOW_CAP` of them (stable order, as JAX's argsort) form the
-    set O, and
-      (b) covered and selected targets <- O sources (cheb <= 1),
-      (c) O targets <- covered sources (cheb <= 1).
-    Big targets already received overflow-small impulses from the big-body
-    pass, and unselected overflow targets are in no source set, so both are
-    left out of (b): pairs beyond the cap drop symmetrically."""
+class _Overflow(NamedTuple):
+    """The residual's overflow set O, chosen over the whole sorted set."""
+    idx: torch.Tensor        # [m_cap] sorted rows of O (stable order)
+    valid: torch.Tensor      # [m_cap] the row is an overflow small
+    src: Fields              # O's fields, mass 0 where not valid
+    tgt_ok: torch.Tensor     # [N] sorted: the targets of pass (b)
+    cover_src: Fields        # the sources of pass (c): covered rows only
+
+
+def _overflow_set(fields_s: Fields, in_cover, big_s) -> _Overflow:
+    """The first `_OVERFLOW_CAP` smalls the broad phase could not cover
+    (stable order, as JAX's argsort), and what the residual's two passes
+    take. The multi-device pass computes it on every rank the same way, so
+    every rank drops the same pairs beyond the cap."""
     pos_s, vel_s, mass_s, radius_s, cell_s = fields_s
     n = pos_s.shape[0]
     m_cap = min(n, _OVERFLOW_CAP)
@@ -195,18 +199,32 @@ def _residual_corrections(dpos_s, dvel_s, fields_s: Fields, in_cover, big_s,
          cell_s[o_idx])
     sel_over = torch.zeros(n, dtype=torch.bool, device=pos_s.device)
     sel_over[o_idx] = o_valid
-    dp_b, dv_b = _cheb_pair_deltas_blocked(fields_s, o, dim, impulse,
-                                           use_kernel=use_kernel)
-    tgt_ok = (~big_s & (in_cover | sel_over))[:, None]
-    dpos_s = dpos_s + torch.where(tgt_ok, dp_b, 0.0)
-    dvel_s = dvel_s + torch.where(tgt_ok, dv_b, 0.0)
     cover_src = (pos_s, vel_s, torch.where(in_cover, mass_s, 0.0), radius_s,
                  cell_s)
-    dp_c, dv_c = _cheb_pair_deltas_blocked(o, cover_src, dim, impulse,
+    return _Overflow(o_idx, o_valid, o, ~big_s & (in_cover | sel_over),
+                     cover_src)
+
+
+def _residual_corrections(dpos_s, dvel_s, fields_s: Fields, in_cover, big_s,
+                          impulse: float, dim: int, use_kernel: bool):
+    """Exact residual for the smalls the broad phase could not cover: the
+    set O (`_overflow_set`), and
+      (b) covered and selected targets <- O sources (cheb <= 1),
+      (c) O targets <- covered sources (cheb <= 1).
+    Big targets already received overflow-small impulses from the big-body
+    pass, and unselected overflow targets are in no source set, so both are
+    left out of (b): pairs beyond the cap drop symmetrically."""
+    ov = _overflow_set(fields_s, in_cover, big_s)
+    dp_b, dv_b = _cheb_pair_deltas_blocked(fields_s, ov.src, dim, impulse,
                                            use_kernel=use_kernel)
-    ov = o_valid[:, None]
-    dpos_s = dpos_s.index_add(0, o_idx, torch.where(ov, dp_c, 0.0))
-    dvel_s = dvel_s.index_add(0, o_idx, torch.where(ov, dv_c, 0.0))
+    tgt_ok = ov.tgt_ok[:, None]
+    dpos_s = dpos_s + torch.where(tgt_ok, dp_b, 0.0)
+    dvel_s = dvel_s + torch.where(tgt_ok, dv_b, 0.0)
+    dp_c, dv_c = _cheb_pair_deltas_blocked(ov.src, ov.cover_src, dim,
+                                           impulse, use_kernel=use_kernel)
+    ok = ov.valid[:, None]
+    dpos_s = dpos_s.index_add(0, ov.idx, torch.where(ok, dp_c, 0.0))
+    dvel_s = dvel_s.index_add(0, ov.idx, torch.where(ok, dv_c, 0.0))
     return dpos_s, dvel_s
 
 
@@ -448,26 +466,35 @@ def _bucket_cells(pos: torch.Tensor, radius: torch.Tensor,
     return _BucketCells(bigs, cell, flat)
 
 
-def _bucket_stencil(planes, res: int, cap: int, impulse: float):
-    """Pair deltas of every slot against the slots of its 9 neighbouring
-    cells, per slot: (dpos x, dpos y, dvel x, dvel y) [res, res, cap].
-    `planes` = (px, py, vx, vy, m, r) [res, res, cap]; empty slots have
-    mass 0 and radius -1e9. Rows of cells in chunks keep the
-    [chunk, res, cap, cap] pair temps near 2^24 elements."""
+def _bucket_stencil(planes, res: int, cap: int, impulse: float,
+                    center_rows: Optional[int] = None):
+    """Pair deltas of every target slot against the slots of its 9
+    neighbouring cells, per slot: (dpos x, dpos y, dvel x, dvel y), [rows,
+    res, cap] each. `planes` = (px, py, vx, vy, m, r): the whole grid
+    [res, res, cap] (center_rows None: zero rows beyond it), or a row window
+    [center_rows + 2, res, cap] whose first and last rows are halo sources
+    (the multi-device pass's band). Empty slots have mass 0 and radius
+    -1e9. Rows of cells in chunks keep the [chunk, res, cap, cap] pair temps
+    near 2^24 elements."""
     fills = (0.0, 0.0, 0.0, 0.0, 0.0, -1e9)
-    padded = [F.pad(p, (0, 0, 1, 1, 1, 1), value=f)
+    if center_rows is None:
+        rows, tgt_planes, row_pad = res, planes, (1, 1)
+    else:
+        rows, row_pad = center_rows, (0, 0)
+        tgt_planes = [p[1:1 + rows] for p in planes]
+    padded = [F.pad(p, (0, 0, 1, 1) + row_pad, value=f)
               for p, f in zip(planes, fills)]
-    chunk = max(1, min(res, (1 << 24) // max(1, res * cap * cap)))
-    while res % chunk:
+    chunk = max(1, min(rows, (1 << 24) // max(1, res * cap * cap)))
+    while rows % chunk:
         chunk -= 1
-    acc = [torch.zeros_like(planes[0]) for _ in range(4)]
+    acc = [torch.zeros_like(tgt_planes[0]) for _ in range(4)]
     for ox in (-1, 0, 1):
         for oy in (-1, 0, 1):
-            shifted = [p[1 + ox:1 + ox + res, 1 + oy:1 + oy + res]
+            shifted = [p[1 + ox:1 + ox + rows, 1 + oy:1 + oy + res]
                        for p in padded]
-            for c0 in range(0, res, chunk):
+            for c0 in range(0, rows, chunk):
                 tpx, tpy, tvx, tvy, tm, tr = (p[c0:c0 + chunk]
-                                              for p in planes)
+                                              for p in tgt_planes)
                 cpx, cpy, cvx, cvy, cm, cr = (p[c0:c0 + chunk]
                                               for p in shifted)
                 d = torch.stack([cpx[:, :, None, :] - tpx[:, :, :, None],
@@ -497,6 +524,14 @@ def _bucket_pass(state: ParticleState, config: SimConfig) -> ParticleState:
     grid; every slot meets the slots of its 9 neighbouring cells. Big bodies
     (radius > cell/2) leave the grid for the exact big-body passes, and
     smalls past the cap take the exact residual."""
+    return _apply(state, _bucket_deltas(state, config,
+                                        _use_kernels(state, config)))
+
+
+def _bucket_deltas(state: ParticleState, config: SimConfig,
+                   use_kernel: bool):
+    """The bucket pass's (dpos, dvel) [N, 2] in the original order, its
+    corrections through K5 with `use_kernel`."""
     pos, vel, mass, radius = state.pos, state.vel, state.mass, state.radius
     n = state.n
     cap = config.collision_max_neighbors
@@ -535,9 +570,9 @@ def _bucket_pass(state: ParticleState, config: SimConfig) -> ParticleState:
                         for a in acc)
     dpos_s = torch.stack([dx, dy], -1)
     dvel_s = torch.stack([dvx, dvy], -1)
-    return _apply(state, _corrected_deltas(
+    return _corrected_deltas(
         state, order, bc.bigs, bc.cell, fields_s, dpos_s, dvel_s, in_cap,
-        big_s, overflow, config, _use_kernels(state, config)))
+        big_s, overflow, config, use_kernel)
 
 
 def collision_bucket_overflow(state: ParticleState, config: SimConfig) -> int:
@@ -665,6 +700,13 @@ def _grid_pass(state: ParticleState, config: SimConfig) -> ParticleState:
     in chunks of `_WINDOW_CHUNK` rows; particles past their segment's
     window take the shared exact residual, big bodies the shared unmasked
     passes (K5 on the card)."""
+    return _apply(state, _grid_deltas(state, config,
+                                      _use_kernels(state, config)))
+
+
+def _grid_deltas(state: ParticleState, config: SimConfig, use_kernel: bool):
+    """The hash pass's (dpos, dvel) [N, D] in the original order, its
+    corrections through K5 with `use_kernel`."""
     n, dim = state.n, state.dim
     g = _hash_grid(state.pos, state.radius, config)
     order = g.order
@@ -679,9 +721,9 @@ def _grid_pass(state: ParticleState, config: SimConfig) -> ParticleState:
     dpos_s = torch.cat([p[0] for p in parts])
     dvel_s = torch.cat([p[1] for p in parts])
     overflow = (~g.in_win & ~g.big_s).sum()
-    return _apply(state, _corrected_deltas(
+    return _corrected_deltas(
         state, order, g.bigs, g.cell, fields_s, dpos_s, dvel_s, g.in_win,
-        g.big_s, overflow, config, _use_kernels(state, config)))
+        g.big_s, overflow, config, use_kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Multi-process workers for the port's sharding and banded-tree parity
-tests (tests/test_torch_sharding.py, tests/test_torch_tree_banded.py).
+"""Multi-process workers for the port's sharding and banded parity tests
+(tests/test_torch_sharding.py, tests/test_torch_tree_banded.py,
+tests/test_torch_collisions_banded.py, tests/test_torch_tree3_banded.py).
 
 A test module builds its numpy inputs from a seed, spawns one gloo process
 group of P ranks on the CPU for all of its cases (`run`), and compares what
@@ -31,21 +32,25 @@ def case(fn):
     return fn
 
 
-def run(world_size: int, jobs, workdir):
+def run(world_size: int, jobs, workdir, refs=()):
     """Run jobs [(key, case name, inputs dict)] on `world_size` gloo ranks
-    meeting at a file under `workdir` (a test's tmp_path); returns
-    [per-rank {key: ("ok", result) or ("error", text)}]."""
-    return comm.spawn(_run_jobs, world_size, (jobs,), timeout_s=60.0,
+    meeting at a file under `workdir` (a test's tmp_path); then `refs`,
+    jobs of the same form that use no collective (the single-device
+    references), shared out over the ranks, each run on one of them.
+    Returns [per-rank {key: ("ok", result) or ("error", text)}]; a ref's
+    key is in the dict of the rank that ran it."""
+    return comm.spawn(_run_jobs, world_size, (jobs, refs), timeout_s=60.0,
                       workdir=str(workdir))
 
 
-def _run_jobs(rank, jobs):
+def _run_jobs(rank, jobs, refs=()):
     from nbodysim_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(device_type="cpu")
     axis = comm.mesh_axis(mesh, "shards")
+    mine = [r for i, r in enumerate(refs) if i % axis.size == rank]
     out = {}
-    for key, name, inputs in jobs:
+    for key, name, inputs in list(jobs) + mine:
         try:
             out[key] = ("ok", CASES[name](mesh, axis, **inputs))
         except Exception as e:  # reported to the parent's test
@@ -187,6 +192,66 @@ def resume_other_mesh(mesh, axis, path, n_steps=1):
     return _whole(ss)
 
 
+@case
+def collision_work(mesh, axis, state, cfg):
+    """`collision_deltas` with this rank's work counts."""
+    from nbodysim_tpu_torch.parallel.collisions import (
+        sharded_collision_deltas)
+
+    dp, dv = collision_deltas(mesh, axis, state, cfg)
+    return {"dp": dp, "dv": dv,
+            "work": dict(sharded_collision_deltas.work)}
+
+
+@case
+def single_collision(mesh, axis, state, cfg):
+    """A reference: one single-device collision pass, its deltas."""
+    from nbodysim_tpu_torch.physics.collisions import resolve_collisions
+
+    st = _state(state)
+    out = resolve_collisions(st, nt.SimConfig(**cfg))
+    return (out.pos - st.pos).numpy(), (out.vel - st.vel).numpy()
+
+
+class _TileCaps:
+    """Overrides of the 3D tiles' caps that change results, in this
+    process: the least halo-source cap (`_HALO_MIN`) and the scatter's
+    compaction capacity (`_scatter_cap3`, a fixed row count)."""
+
+    def __init__(self, halo_min=None, scatter_cap=None):
+        self.halo_min, self.scatter_cap = halo_min, scatter_cap
+
+    def __enter__(self):
+        from nbodysim_tpu_torch.parallel import tree3d
+        from nbodysim_tpu_torch.physics import barneshut as tb
+        from nbodysim_tpu_torch.physics import barneshut3d as tb3
+
+        self.saved = (tb._HALO_MIN, tb3._scatter_cap3, tree3d._scatter_cap3)
+        if self.halo_min is not None:
+            tb._HALO_MIN = self.halo_min
+        if self.scatter_cap is not None:
+            cap = self.scatter_cap
+            tb3._scatter_cap3 = tree3d._scatter_cap3 = lambda n: min(n, cap)
+
+    def __exit__(self, *exc):
+        from nbodysim_tpu_torch.parallel import tree3d
+        from nbodysim_tpu_torch.physics import barneshut as tb
+        from nbodysim_tpu_torch.physics import barneshut3d as tb3
+
+        tb._HALO_MIN, tb3._scatter_cap3, tree3d._scatter_cap3 = self.saved
+
+
+@case
+def single_tree(mesh, axis, pos, mass, cfg, halo_min=None, scatter_cap=None):
+    """A reference: the single-device tree (`bh_accelerations`), with the
+    tiles' caps overridden (`_TileCaps`)."""
+    from nbodysim_tpu_torch.physics.barneshut import bh_accelerations
+
+    with _TileCaps(halo_min, scatter_cap):
+        return bh_accelerations(torch.from_numpy(pos), torch.from_numpy(mass),
+                                nt.SimConfig(**cfg)).numpy()
+
+
 # ---------------------------------------------------------------------------
 # The banded tree
 # ---------------------------------------------------------------------------
@@ -245,10 +310,54 @@ def banded(mesh, axis, pos, mass, cfg, slack=None, check_k3=False,
 
 
 @case
-def banded3(mesh, axis, pos, mass, cfg):
-    """The octree's multi-device dispatch, whole."""
-    from nbodysim_tpu_torch.parallel.tree3d import banded_tree3_accelerations
+def banded3(mesh, axis, pos, mass, cfg, slack=None, check_k7=False,
+            spy_conv=False, halo_min=None, scatter_cap=None):
+    """The octree's multi-device dispatch on a whole (pos, mass), whole,
+    with this rank's work counts. slack overrides `_BAND_SLACK`; check_k7
+    routes the near field through the K7 wrapper (its plain version on the
+    CPU) and checks the window grid's counts contract on every call;
+    spy_conv records cuDNN's TF32 flag at every M2L convolution; halo_min
+    and scatter_cap override the tiles' caps (`_TileCaps`)."""
+    from nbodysim_tpu_torch.parallel import tree, tree3d
+    from nbodysim_tpu_torch.physics import barneshut3d as tb3
 
-    acc = banded_tree3_accelerations(_local(pos, axis), _local(mass, axis),
-                                     nt.SimConfig(**cfg), axis)
-    return comm.all_gather(acc, axis).numpy()
+    config = nt.SimConfig(**cfg)
+    saved = (tree._BAND_SLACK, tree3d.bucket_stencil3, tb3.F.conv3d,
+             torch.backends.cudnn.allow_tf32)
+    report = {"k7_calls": 0, "k7_bad": 0, "tf32": []}
+
+    def k7(bx, by, bz, bm, *, counts, rr, eps_sq, center_rows):
+        report["k7_calls"] += 1
+        occ = torch.arange(bx.shape[-1]) < counts[..., None].long()
+        # Slots at or above a count empty; the in-window slots below it.
+        if any(bool((a[~occ] != 0).any()) for a in (bx, by, bz, bm)):
+            report["k7_bad"] += 1
+        if tuple(counts.shape) != tuple(bx.shape[:-1]) or \
+                bx.shape[0] != center_rows + 2 * rr:
+            report["k7_bad"] += 1
+        return saved[1](bx, by, bz, bm, counts=counts, rr=rr, eps_sq=eps_sq,
+                        center_rows=center_rows)
+
+    def conv3d(*a, **kw):
+        report["tf32"].append(torch.backends.cudnn.allow_tf32)
+        return saved[2](*a, **kw)
+
+    try:
+        if slack is not None:
+            tree._BAND_SLACK = slack
+        if check_k7:
+            tree3d.bucket_stencil3 = k7
+        if spy_conv:
+            tb3.F.conv3d = conv3d
+            torch.backends.cudnn.allow_tf32 = True
+        with _TileCaps(halo_min, scatter_cap):
+            acc = tree3d.banded_tree3_accelerations(
+                _local(pos, axis), _local(mass, axis), config, axis,
+                use_kernels=True if check_k7 else None)
+        report["tf32_after"] = torch.backends.cudnn.allow_tf32
+    finally:
+        (tree._BAND_SLACK, tree3d.bucket_stencil3, tb3.F.conv3d,
+         torch.backends.cudnn.allow_tf32) = saved
+    return {"acc": comm.all_gather(acc, axis).numpy(),
+            "work": dict(tree3d.banded_tree3_accelerations.work),
+            "report": report}
