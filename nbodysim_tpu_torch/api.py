@@ -16,6 +16,7 @@ import torch
 
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.state import ParticleState
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.physics.collisions import (
     resolve_collision_phase_for_state,
 )
@@ -176,7 +177,7 @@ class Simulation:
 
     @property
     def frame(self) -> int:
-        return int(self.state.frame)
+        return profiling.host_read(self.state.frame, "frame")
 
     @property
     def dt(self) -> float:

@@ -14,9 +14,6 @@ config-5 line (the N=4M galaxy merger, forces only, one warm and one timed
 lap of 2 steps); --full adds the 3D octree at N=1M. --config 1..5 runs one
 BASELINE.json preset, --drift-gate the 10k-step energy-drift gate
 (scripts/drift_gate.py's run). The metric names are the root bench's.
-
-`vs_baseline` divides by 1e11 pairs/s, BASELINE.json's figure for one TPU
-v5e chip: a reference point from the TPU, never a number of this card.
 Every lap ends with a synchronize; runs on the card unless --device cpu.
 """
 
@@ -34,21 +31,8 @@ from nbodysim_tpu_torch.diagnostics.profiling import (
     Stopwatch, chain_evals, device_name, measure_force_throughput,
     measure_step_throughput)
 
-BASELINE_PAIRS_PER_SEC = 1.0e11
-BASELINE_NOTE = ("vs_baseline = value / 1e11 pairs/s, BASELINE.json's "
-                 "figure for one TPU v5e chip (not a figure of this device)")
-
-
-def _line(metric: str, value, unit, vs_baseline=None, **extra) -> dict:
-    out = {"metric": metric, "value": value, "unit": unit,
-           "vs_baseline": vs_baseline, **extra}
-    if vs_baseline is not None:
-        out["baseline"] = BASELINE_NOTE
-    return out
-
-
-def _pairs_line(metric: str, rate: float, unit: str = "pairs/s") -> dict:
-    return _line(metric, rate, unit, rate / BASELINE_PAIRS_PER_SEC)
+def _line(metric: str, value, unit, **extra) -> dict:
+    return {"metric": metric, "value": value, "unit": unit, **extra}
 
 
 def device_header(device) -> dict:
@@ -190,7 +174,7 @@ def _bench_baseline_config(idx: int, device) -> dict:
                                        device=device)
         what = ("config3 all-pairs pairs/s at N=64k" if idx == 3 else
                 "config4 all-pairs pairs/s at N=1M (1 chip)")
-        return _pairs_line(what, out["pairs_per_second"])
+        return _line(what, out["pairs_per_second"], "pairs/s")
     if idx == 5:   # 4M galaxy merger, tree code with the deep chain
         kw = dict(reps=3, scene="galaxy_merger", force_backend="bh",
                   bh_deep_levels=-1, integrator="leapfrog_kdk", dt=0.05,
@@ -238,17 +222,18 @@ def main(argv=None) -> None:
         return
 
     reps = args.reps if args.reps else (3 if args.n >= (1 << 19) else 10)
-    emit(_pairs_line(f"pairwise interactions/sec/chip (all-pairs kernel, "
-                     f"N={args.n})", _bench_kernel(args.n, reps, device)))
+    emit(_line(f"pairwise interactions/sec/chip (all-pairs kernel, "
+               f"N={args.n})", _bench_kernel(args.n, reps, device),
+               "pairs/s"))
     if args.n != 65536:
-        emit(_pairs_line("pairwise interactions/sec/chip (all-pairs kernel, "
-                         "N=65536)", _bench_kernel(65536, 10, device)))
+        emit(_line("pairwise interactions/sec/chip (all-pairs kernel, "
+                   "N=65536)", _bench_kernel(65536, 10, device), "pairs/s"))
     emit(_line("fused steps/sec (N=25000 reference config)",
                _bench_step(25_000, 10, device), "steps/s"))
     bh = measure_force_throughput(1 << 20, backend="bh", reps=3,
                                   device=device)
-    emit(_pairs_line("FMM tree-code pairs-equivalent/sec/chip (N=1M)",
-                     bh["pairs_per_second"], "pairs-equiv/s"))
+    emit(_line("FMM tree-code pairs-equivalent/sec/chip (N=1M)",
+               bh["pairs_per_second"], "pairs-equiv/s"))
     c5 = measure_step_throughput(
         1 << 22, reps=2, laps=1, scene="galaxy_merger", force_backend="bh",
         bh_deep_levels=-1, integrator="leapfrog_kdk",
@@ -259,8 +244,8 @@ def main(argv=None) -> None:
     if args.full:
         bh3 = measure_force_throughput(1 << 20, backend="bh", reps=3, dim=3,
                                        device=device)
-        emit(_pairs_line("3D octree FMM pairs-equivalent/sec/chip (N=1M)",
-                         bh3["pairs_per_second"], "pairs-equiv/s"))
+        emit(_line("3D octree FMM pairs-equivalent/sec/chip (N=1M)",
+                   bh3["pairs_per_second"], "pairs-equiv/s"))
 
 
 if __name__ == "__main__":

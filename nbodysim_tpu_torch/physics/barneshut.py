@@ -34,8 +34,8 @@ Differences from the JAX package, each deliberate:
     switched off around the call (the JAX package pins HIGHEST, and drops to
     HIGH, bf16x3, at r >= 1024; full f32 is at least as exact);
   * the residual tiers, and the deep chain's row compactions, are Python
-    branches on a count read from the device: one host sync each, where
-    the JAX package uses `lax.cond`;
+    branches on a count read from the device: one host sync each
+    (`profiling.host_read`), where the JAX package uses `lax.cond`;
   * on the card the residual's pair blocks are 32768 wide instead of 2048
     (the same function in ~16x fewer launches);
   * the per-tile chain runs the T tiles as one batch where the JAX package
@@ -64,6 +64,7 @@ import torch.nn.functional as F
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.blocking import (
     pairwise_blocked, sorted_first_occurrence)
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
@@ -640,9 +641,9 @@ def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
     O's far field is already exact (the pyramid holds every particle). Two
     tiers: the masked pass costs O(N * cap), so a mild overflow (a few
     clustered cells) takes the 1024-wide tier. The tier is a Python branch
-    on `int(overflow)`: one host sync."""
+    on the overflow count: one host sync (`host_read`)."""
     n = acc_s.shape[0]
-    over = int(b.overflow)
+    over = profiling.host_read(b.overflow, "near_overflow")
     m_cap = min(n, _OVERFLOW_CAP)
     m_small = min(n, _OVERFLOW_SMALL)
     if over == 0:
@@ -814,6 +815,13 @@ def _compact_indices(mask, cap: int):
     sidx[torch.where(mask & (rank < cap), rank, cap)] = torch.arange(
         n, device=mask.device)
     return sidx[:cap], mask.sum()
+
+
+def _count_rows(what: str, need: int, cap: int, n: int) -> None:
+    """The counters of a compacted pass: the rows it needs, and the rows it
+    computes (its capacity where the count fits, else all n)."""
+    profiling.count("tree.rows_needed." + what, need)
+    profiling.count("tree.rows_computed." + what, cap if need <= cap else n)
 
 
 def _deep_rows_cap(n: int) -> int:
@@ -1121,7 +1129,9 @@ def _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
     slice of the level-D locals. The scatter takes only the rows that can
     reach a selected window, and the apply only the refined targets,
     each compacted to a fixed capacity when the count fits it (a host
-    sync), else over all rows; both give the same result."""
+    sync each, `host_read`), else over all rows; both give the same
+    result. The counters `tree.rows_needed.scatter` / `.apply` and
+    `tree.rows_computed.*` keep both counts."""
     n = pos.shape[0]
     geo = (corner, size, deep, radius, k, t, T)
     s_cap = _scatter_cap(n)
@@ -1129,7 +1139,9 @@ def _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
     if s_cap < n:
         sidx_s, n_src = _compact_indices(
             _tile_src_mask(ci_f, tile_slot, deep, radius, t, T), s_cap)
-        if int(n_src) <= s_cap:
+        n_src = profiling.host_read(n_src, "scatter_rows")
+        _count_rows("scatter", n_src, s_cap, n)
+        if n_src <= s_cap:
             valid_s = sidx_s < n
             ss = torch.clamp(sidx_s, max=n - 1)
             g3k = _tile_scatter(
@@ -1144,7 +1156,9 @@ def _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
     cap = _refined_cap(n)
     if cap < n:
         sidx, n_cand = _compact_indices((tile_slot[tid] < T) & b_par, cap)
-        if int(n_cand) <= cap:
+        n_cand = profiling.host_read(n_cand, "apply_rows")
+        _count_rows("apply", n_cand, cap, n)
+        if n_cand <= cap:
             valid = sidx < n
             si = torch.clamp(sidx, max=n - 1)
             r_s, far_s, near_s = _tile_apply(
@@ -1203,61 +1217,66 @@ def _deep_chain(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
     """The deep branch of `_bh_accelerations`: continue the downward pass
     from the bucket level's locals to `deep`, and give the deep-path
     targets (b_par) the deep L2P against the ring-folded locals plus the
-    inner 3 x 3 smoothed aggregates, then the tile refinement. Returns the
-    overridden (far, near), scaled by g_const."""
+    inner 3 x 3 smoothed aggregates (the span `tree.deep`), then the tile
+    refinement (`tree.tiles`). Returns the overridden (far, near), scaled
+    by g_const."""
     n = pos.shape[0]
-    for lv in range(levels + 1, deep + 1):
-        terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
-        up = _l2l_upsample(local, size / (1 << lv))
-        local = tuple(u + t for u, t in zip(up, terms))
-    local_deep = local
+    with profiling.span("tree.deep"):
+        for lv in range(levels + 1, deep + 1):
+            terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
+            up = _l2l_upsample(local, size / (1 << lv))
+            local = tuple(u + t for u, t in zip(up, terms))
+        local_deep = local
 
-    payload = _moment_payload(pos, tree_mass)
-    rrd = radius - 1
-    rin = min(rrd, 1)    # inner aggregate window; the ring folds into L2P
-    # The tiles must see the UN-folded local_deep: their sub-level chain
-    # re-decomposes the window the fold covers.
-    local_agg = _fold_aggregate_ring(
-        local_deep, tuple(F.pad(g, (rrd, rrd, rrd, rrd)) for g in grids[deep]),
-        corner, size, 1 << deep, eps_sq, radius, row0=0, rows=1 << deep)
-    g3_pad = F.pad(torch.stack(grids[deep][:3], -1),
-                   (0, 0, rin, rin, rin, rin))
-    s_d = size / (1 << deep)
+        payload = _moment_payload(pos, tree_mass)
+        rrd = radius - 1
+        rin = min(rrd, 1)    # inner aggregate window; the ring folds into L2P
+        # The tiles must see the UN-folded local_deep: their sub-level chain
+        # re-decomposes the window the fold covers.
+        local_agg = _fold_aggregate_ring(
+            local_deep,
+            tuple(F.pad(g, (rrd, rrd, rrd, rrd)) for g in grids[deep]),
+            corner, size, 1 << deep, eps_sq, radius, row0=0, rows=1 << deep)
+        g3_pad = F.pad(torch.stack(grids[deep][:3], -1),
+                       (0, 0, rin, rin, rin, rin))
+        s_d = size / (1 << deep)
 
-    def deep_rows(pos_r, ci_r, pay_r):
-        far_r = g_const * _l2p_eval(local_agg, ci_r, pos_r, corner, size,
-                                    deep)
-        near_r = g_const * _deep_near_aggregates(pos_r, pay_r, g3_pad, ci_r,
-                                                 eps_sq, s_d, rr=rin)
-        return far_r, near_r
+        def deep_rows(pos_r, ci_r, pay_r):
+            far_r = g_const * _l2p_eval(local_agg, ci_r, pos_r, corner,
+                                        size, deep)
+            near_r = g_const * _deep_near_aggregates(
+                pos_r, pay_r, g3_pad, ci_r, eps_sq, s_d, rr=rin)
+            return far_r, near_r
 
-    rows_d = None
-    dcap = _deep_rows_cap(n)
-    if tile_levels and dcap < n:
-        # Rows the tiles refine discard the deep rows' output, so only
-        # b_par & ~refined rows run them (refined equals this cand).
-        tid_d, tile_slot_d, _ = _tile_select(ci_f, b_par, deep, tile_size,
-                                             tile_count, radius)
-        cand = (tile_slot_d[tid_d] < tile_count) & b_par
-        sidx, n_need = _compact_indices(b_par & ~cand, dcap)
-        if int(n_need) <= dcap:
-            valid = sidx < n
-            sd = torch.clamp(sidx, max=n - 1)
-            rows_d = _scatter_rows(n, torch.where(valid, sd, n),
-                                   *deep_rows(pos[sd], ci_f[sd],
-                                              payload[sd, :3]))
-    if rows_d is None:
-        rows_d = deep_rows(pos, ci_f, payload[:, :3])
-    far = torch.where(b_par[:, None], rows_d[0], far)
-    near = torch.where(b_par[:, None], rows_d[1], near)
-
+        rows_d = None
+        dcap = _deep_rows_cap(n)
+        if tile_levels and dcap < n:
+            # Rows the tiles refine discard the deep rows' output, so only
+            # b_par & ~refined rows run them (refined equals this cand).
+            tid_d, tile_slot_d, _ = _tile_select(
+                ci_f, b_par, deep, tile_size, tile_count, radius)
+            cand = (tile_slot_d[tid_d] < tile_count) & b_par
+            sidx, n_need = _compact_indices(b_par & ~cand, dcap)
+            n_need = profiling.host_read(n_need, "deep_rows")
+            _count_rows("deep", n_need, dcap, n)
+            if n_need <= dcap:
+                valid = sidx < n
+                sd = torch.clamp(sidx, max=n - 1)
+                rows_d = _scatter_rows(n, torch.where(valid, sd, n),
+                                       *deep_rows(pos[sd], ci_f[sd],
+                                                  payload[sd, :3]))
+        if rows_d is None:
+            rows_d = deep_rows(pos, ci_f, payload[:, :3])
+        far = torch.where(b_par[:, None], rows_d[0], far)
+        near = torch.where(b_par[:, None], rows_d[1], near)
     if tile_levels:
-        refined, far_ref, near_ref = _tile_refine(
-            pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
-            deep, radius, eps_sq, k=tile_levels, t=tile_size, T=tile_count)
-        sel = refined[:, None]
-        far = torch.where(sel, g_const * far_ref, far)
-        near = torch.where(sel, g_const * near_ref, near)
+        with profiling.span("tree.tiles"):
+            refined, far_ref, near_ref = _tile_refine(
+                pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
+                deep, radius, eps_sq, k=tile_levels, t=tile_size, T=tile_count)
+            sel = refined[:, None]
+            far = torch.where(sel, g_const * far_ref, far)
+            near = torch.where(sel, g_const * near_ref, near)
     return far, near
 
 
@@ -1270,44 +1289,53 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
     (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor those
     wrappers run their plain versions. use_kernels=False runs the plain
     versions on any device. deep_levels > levels turns on the deep-overflow
-    chain (`_deep_chain`), tile_levels > 0 its hot-zone tiles."""
-    ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
-        pos, mass, eps_sq, g_const, use_kernels)
+    chain (`_deep_chain`), tile_levels > 0 its hot-zone tiles.
+
+    Its stages are the spans `tree.couplings`, `tree.pyramid`,
+    `tree.downward`, `tree.near` (with the deep path's targets),
+    `tree.deep`, `tree.tiles` and `tree.assemble`."""
+    with profiling.span("tree.couplings"):
+        ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
+            pos, mass, eps_sq, g_const, use_kernels)
 
     tree_mass = ext["tree_mass"]          # the tree sees only the bulk
     deep = deep_levels if deep_levels > levels else 0
-    grids, corner, size, ci_f, flat_f = _build_pyramid(
-        ext["bulk_pos"], tree_mass, deep or levels, synth_quad=bool(deep))
     res = 1 << levels
-    if deep:
-        ci = ci_f >> (deep - levels)           # bucket-level cell indices
-        flat = ci[:, 0] * res + ci[:, 1]
-    else:
-        ci, flat = ci_f, flat_f
+    with profiling.span("tree.pyramid"):
+        grids, corner, size, ci_f, flat_f = _build_pyramid(
+            ext["bulk_pos"], tree_mass, deep or levels, synth_quad=bool(deep))
+        if deep:
+            ci = ci_f >> (deep - levels)           # bucket-level cell indices
+            flat = ci[:, 0] * res + ci[:, 1]
+        else:
+            ci, flat = ci_f, flat_f
 
     # Downward pass: M2L at each level + L2L to the next.
-    local = None
-    for lv in range(2, levels + 1):
-        terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
-        if local is None:
-            local = terms
-        else:
-            up = _l2l_upsample(local, size / (1 << lv))
-            local = tuple(u + t for u, t in zip(up, terms))
-
-    far = g_const * _l2p_eval(local, ci, pos, corner, size, levels)
-    flat_nf = _outlier_flat_ids(flat, ext["is_out"], res * res)
-    near, _ = _near_field_buckets(
-        pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
-        radius, use_kernels=use_kernels, skip_residual=bool(deep))
+    with profiling.span("tree.downward"):
+        local = None
+        for lv in range(2, levels + 1):
+            terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
+            if local is None:
+                local = terms
+            else:
+                up = _l2l_upsample(local, size / (1 << lv))
+                local = tuple(u + t for u, t in zip(up, terms))
+        far = g_const * _l2p_eval(local, ci, pos, corner, size, levels)
+    with profiling.span("tree.near"):
+        flat_nf = _outlier_flat_ids(flat, ext["is_out"], res * res)
+        near, _ = _near_field_buckets(
+            pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
+            radius, use_kernels=use_kernels, skip_residual=bool(deep))
+        if deep:
+            b_par = _deep_targets(flat_nf, flat, ext["is_out"], res,
+                                  near_cap, radius)
     if deep:
-        b_par = _deep_targets(flat_nf, flat, ext["is_out"], res, near_cap,
-                              radius)
         far, near = _deep_chain(
             pos, ext["bulk_pos"], tree_mass, grids, local, corner, size,
             ci_f, b_par, far, near, levels, deep, eps_sq, g_const, radius,
             tile_levels, tile_size, tile_count)
-    return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
+    with profiling.span("tree.assemble"):
+        return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
 
 
 def _near_overflow(pos: torch.Tensor, mass: torch.Tensor,

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.blocking import sorted_first_occurrence
 from nbodysim_tpu_torch.core.state import ParticleState
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.collide import (
     _pair_deltas,
     allpairs_collision_deltas,
@@ -236,11 +237,12 @@ def _exact_corrections(dpos_s, dvel_s, fields_s: Fields, in_cover, big_s,
     broad phase's sorted order; `in_cover` marks the sorted-order smalls it
     fully resolved; `big_src` is the (<= 64)-row extracted big-body tuple
     and `top_sorted` its rows' sorted-order indices. The residual runs only
-    when `overflow` > 0: a Python branch, one host sync (JAX: lax.cond)."""
+    when `overflow` > 0: a Python branch, one host sync (`host_read`; JAX:
+    lax.cond)."""
     dpos_s, dvel_s = _big_body_corrections(
         dpos_s, dvel_s, fields_s, big_s, big_src, big_sel, top_sorted,
         impulse, dim, use_kernel)
-    if int(overflow) > 0:
+    if profiling.host_read(overflow, "collide_overflow") > 0:
         dpos_s, dvel_s = _residual_corrections(
             dpos_s, dvel_s, fields_s, in_cover, big_s, impulse, dim,
             use_kernel)
@@ -407,11 +409,15 @@ def _block_deltas(state: ParticleState, config: SimConfig,
     """The block pass's (dpos, dvel) [N, D] in the original order: through
     K6 and K5 with `use_kernel`, else through their plain versions."""
     n = state.n
-    s = _block_structure(state.pos, state.radius, config)
-    bp = _block_planes(state, s)
-    dp_s, dv_s = _block_dense_deltas(bp.planes, s, config, use_kernel)
-    return _block_corrections(state, s, bp, dp_s[:n], dv_s[:n], config,
-                              use_kernel)
+    with profiling.span("collide.structure"):
+        s = _block_structure(state.pos, state.radius, config)
+    with profiling.span("collide.planes"):
+        bp = _block_planes(state, s)
+    with profiling.span("collide.block"):
+        dp_s, dv_s = _block_dense_deltas(bp.planes, s, config, use_kernel)
+    with profiling.span("collide.corrections"):
+        return _block_corrections(state, s, bp, dp_s[:n], dv_s[:n], config,
+                                  use_kernel)
 
 
 def _block_pass(state: ParticleState, config: SimConfig) -> ParticleState:
@@ -770,12 +776,14 @@ def resolve_collision_phase_for_state(state: ParticleState,
 
 def resolve_collisions(state: ParticleState,
                        config: SimConfig) -> ParticleState:
-    """Full collision step: broad phase + Jacobi narrow phase, iterated."""
+    """Full collision step: broad phase + Jacobi narrow phase, iterated
+    (the span `collisions`)."""
     if not config.enable_collisions:
         return state
     one_pass = {"dense": _dense_pass, "bucket": _bucket_pass,
                 "hash": _grid_pass,
                 "block": _block_pass}[_broad_phase(state, config)]
-    for _ in range(max(1, config.collision_iterations)):
-        state = one_pass(state, config)
+    with profiling.span("collisions"):
+        for _ in range(max(1, config.collision_iterations)):
+            state = one_pass(state, config)
     return state

@@ -28,6 +28,7 @@ import torch
 
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.blocking import pairwise_blocked
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations,
     allpairs_accelerations_plain,
@@ -165,12 +166,13 @@ def compute_accelerations(
     mass: torch.Tensor,
     config: SimConfig,
 ) -> torch.Tensor:
-    """Dispatch to the configured force backend."""
+    """Dispatch to the configured force backend (the span `forces`)."""
     backend = resolve_backend(config, pos.shape[0], pos.shape[1], pos.device)
-    if backend == "bh":
-        return bh_accelerations(pos, mass, config)
-    if backend == "cuda":
-        return allpairs_accelerations(
+    with profiling.span("forces"):
+        if backend == "bh":
+            return bh_accelerations(pos, mass, config)
+        if backend == "cuda":
+            return allpairs_accelerations(
+                pos, mass, eps_sq=config.eps_sq, g_const=config.g_const)
+        return direct_accelerations(
             pos, mass, eps_sq=config.eps_sq, g_const=config.g_const)
-    return direct_accelerations(
-        pos, mass, eps_sq=config.eps_sq, g_const=config.g_const)

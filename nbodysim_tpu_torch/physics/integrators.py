@@ -16,6 +16,7 @@ import torch
 
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.core.state import ParticleState
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.physics.forces import compute_accelerations
 
 AccFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (pos, mass)
@@ -110,9 +111,10 @@ def make_step(
     dt = float(torch.tensor(config.dt, dtype=config.dtype))
 
     def step(state: ParticleState, dt=dt) -> ParticleState:
-        state = integ(state, dt, acc_fn, config)
-        if collide_fn is not None:
-            state = collide_fn(state, config)
+        with profiling.span("step"):
+            state = integ(state, dt, acc_fn, config)
+            if collide_fn is not None:
+                state = collide_fn(state, config)
         return state
 
     return step

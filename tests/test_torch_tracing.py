@@ -1,0 +1,319 @@
+"""PyTorch port: the program's spans and counters
+(`nbodysim_tpu_torch.diagnostics.profiling`: `span`, `host_read`, `count`,
+`recording`).
+
+On the CPU: nothing is kept while nothing records; a 2D deep-chain merger
+step (the three row compactions forced on at N = 2048 by smaller caps, the
+block collision pass) gives bit-identical states with recording on and off;
+its row counters equal counts taken from the compactions' own masks;
+`host_syncs` equals the `host_read` calls; the spans nest step > forces >
+tree.* and step > collisions > collide.*; `trace()`'s Chrome trace holds
+them beside the aten ops.
+
+On the card (marked `cuda`, skipped without one): over one step of a 2D
+deep-chain merger, `host_syncs` equals the syncs that
+`torch.cuda.set_sync_debug_mode("warn")` reports less the uncounted
+host-to-device copies of host constants, recording adds no sync, and the
+states are bit-identical with recording on and off; `Simulation.run(10)`
+on the N = 25,000 disc makes no host sync. This file imports no JAX; on a
+machine with a card, run:
+
+    python -m pytest --noconftest -q tests/test_torch_tracing.py
+"""
+
+import json
+import linecache
+import warnings
+from collections import Counter
+from pathlib import Path
+
+import pytest
+import torch
+
+import nbodysim_tpu_torch as nt
+from nbodysim_tpu_torch.app.viewer import Viewer
+from nbodysim_tpu_torch.diagnostics import profiling
+from nbodysim_tpu_torch.physics import barneshut as bh
+from nbodysim_tpu_torch.render.splat import RenderConfig
+
+CPU = torch.device("cpu")
+FIELDS = ("pos", "vel", "acc", "mass", "radius", "frame")
+# The three compactions in the order a deep-chain step runs them.
+COMPACTIONS = ("deep", "scatter", "apply")
+# Host-to-device copies of host constants: syncs no counter holds (the M2L
+# tap tables, the outlier flags' True, the block pass's cell floor and
+# window offsets).
+UNCOUNTED = ("torch.as_tensor(", "torch.tensor(", "is_out[out_i] = True")
+
+
+def _merger_config(n: int, **kw) -> nt.SimConfig:
+    fields = dict(n=n, integrator="leapfrog_kdk", dt=0.05,
+                  force_backend="bh", bh_deep_levels=-1,
+                  collision_broad_phase="block", collision_cell_size=0.0)
+    return nt.SimConfig(**{**fields, **kw})
+
+
+def _merger(n: int, device, **kw) -> nt.Simulation:
+    cfg = _merger_config(n, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return nt.Simulation(cfg, state=nt.init_scene(
+            "galaxy_merger", cfg, device=device), device=device)
+
+
+def _step_from(sim, state, record: bool):
+    """One step of `sim` from `state`; (state after, recorder or None)."""
+    sim.state = state
+    if not record:
+        return sim.run(1), None
+    with profiling.recording() as rec:
+        out = sim.run(1)
+    return out, rec
+
+
+def _assert_same_state(a, b):
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.fixture(scope="module")
+def merger_step():
+    """The N = 2048 deep-chain merger, one step from the same state with
+    recording off and on; the caps are cut so that the deep rows fit their
+    compaction and the tile scatter and apply do not. Returns the states,
+    the recorder, the masks' counts and caps, and the host_read calls."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bh, "_deep_rows_cap", lambda n: n // 2)
+        mp.setattr(bh, "_scatter_cap", lambda n: n // 2)
+        mp.setattr(bh, "_refined_cap", lambda n: n // 8)
+        sim = _merger(2048, CPU, bh_levels=4, bh_deep_levels=6,
+                      bh_tile_levels=2, bh_tile_size=8, bh_tile_count=4)
+        state0 = sim.state
+        off, _ = _step_from(sim, state0, record=False)
+
+        masks, reads = [], []
+        compact, read = bh._compact_indices, profiling.host_read
+
+        def spy_compact(mask, cap):
+            masks.append((int(mask.sum()), cap))
+            return compact(mask, cap)
+
+        def spy_read(t, what):
+            reads.append(what)
+            return read(t, what)
+
+        mp.setattr(bh, "_compact_indices", spy_compact)
+        mp.setattr(profiling, "host_read", spy_read)
+        on, rec = _step_from(sim, state0, record=True)
+    return dict(off=off, on=on, rec=rec, masks=masks, reads=reads)
+
+
+def test_nothing_recording_keeps_no_span():
+    assert profiling._recorder is None
+    # Off, a span is one shared object: nothing is allocated or kept.
+    assert profiling.span("step") is profiling.span("tree.deep")
+    sim = nt.Simulation(nt.SimConfig(n=256), scene="uniform_disc",
+                        device=CPU)
+    with profiling.recording() as before:
+        pass
+    sim.run(2)
+    assert profiling.host_read(sim.state.frame, "frame") == 2
+    assert before.spans == [] and before.counters == {"host_syncs": 0}
+    with profiling.recording() as rec:
+        sim.run(1)
+    assert [s.name for s in rec.select("step")] == ["step"]
+    assert rec.device_ms("step") is None           # no card: no events
+    assert profiling._recorder is None
+
+
+def test_recording_leaves_the_merger_step_bit_identical(merger_step):
+    _assert_same_state(merger_step["off"], merger_step["on"])
+
+
+def test_row_counters_equal_the_masks(merger_step):
+    """Each compaction's needed rows are its mask's count; it computes its
+    capacity where the count fits, else all N. The caps make the deep rows
+    fit and the tile scatter and apply run over every row."""
+    n = 2048
+    cnt = merger_step["rec"].counters
+    assert len(merger_step["masks"]) == len(COMPACTIONS)
+    fits = []
+    for what, (need, cap) in zip(COMPACTIONS, merger_step["masks"]):
+        assert need > 0
+        assert cnt[f"tree.rows_needed.{what}"] == need
+        assert cnt[f"tree.rows_computed.{what}"] == (cap if need <= cap
+                                                     else n)
+        fits.append(need <= cap)
+    assert fits == [True, False, False]
+
+
+def test_host_syncs_count_the_host_reads(merger_step):
+    reads = merger_step["reads"]
+    # The deep rows, the tile scatter, the tile apply, the block pass's
+    # residual branch: the step's four reads of a device count.
+    assert sorted(reads) == ["apply_rows", "collide_overflow", "deep_rows",
+                             "scatter_rows"]
+    rec = merger_step["rec"]
+    assert rec.counters["host_syncs"] == len(reads)
+    assert [s.name for s in rec.select("host_read.")] == [
+        f"host_read.{r}" for r in reads]
+
+
+def test_spans_nest(merger_step):
+    rec = merger_step["rec"]
+    names = [s.name for s in rec.spans]
+    parent = {s.name: (rec.spans[s.parent].name if s.parent is not None
+                       else None) for s in rec.spans}
+    assert parent["step"] is None
+    assert parent["forces"] == parent["collisions"] == "step"
+    tree = ["tree.couplings", "tree.pyramid", "tree.downward", "tree.near",
+            "tree.deep", "tree.tiles", "tree.assemble"]
+    collide = ["collide.structure", "collide.planes", "collide.block",
+               "collide.corrections"]
+    assert [x for x in names if x.startswith("tree.")] == tree
+    assert [x for x in names if x.startswith("collide.")] == collide
+    assert all(parent[x] == "forces" for x in tree)
+    assert all(parent[x] == "collisions" for x in collide)
+    assert parent["host_read.deep_rows"] == "tree.deep"
+    assert parent["host_read.scatter_rows"] == "tree.tiles"
+    assert parent["host_read.apply_rows"] == "tree.tiles"
+    assert parent["host_read.collide_overflow"] == "collide.corrections"
+    assert rec.under(names.index("tree.tiles"), "step")
+    for i, s in enumerate(rec.spans):
+        if s.parent is not None:
+            p = rec.spans[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns, s.name
+    summary = rec.summary()
+    assert list(summary)[:2] == ["step", "forces"]
+    assert summary["step"]["calls"] == 1
+    assert rec.host_ms("tree.") <= rec.host_ms("forces") \
+        <= rec.host_ms("step")
+
+
+def test_viewer_spans_and_host_reads():
+    v = Viewer(nt.SimConfig(n=256), render_config=RenderConfig(
+        width=32, height=24, scale=0.005), steps_per_frame=2, device=CPU)
+    with profiling.recording() as rec:
+        v.frame()
+        hud = v.hud_text()
+    assert "| frame 2 |" in hud
+    assert [s.name for s in rec.spans if s.parent is None] == [
+        "step", "step", "render", "hud"]
+    assert {s.name for s in rec.select("host_read.", under="hud")} == {
+        "host_read.hud_energy", "host_read.frame"}
+    assert rec.counters["host_syncs"] == 2
+
+
+def test_host_read_values_and_counters():
+    t = torch.tensor(7, dtype=torch.int64)
+    assert profiling.host_read(t, "x") == 7
+    profiling.count("rows", 3)                # nothing records: dropped
+    with profiling.recording() as rec:
+        assert profiling.host_read(torch.tensor(True), "b") is True
+        assert profiling.host_read(torch.tensor(2.5), "f") == 2.5
+        profiling.count("rows", 3)
+        profiling.count("rows", 4)
+        with profiling.recording() as inner:
+            profiling.count("rows", 1)
+        profiling.count("rows", 1)
+    assert rec.counters == {"host_syncs": 2, "rows": 8}
+    assert inner.counters == {"host_syncs": 0, "rows": 1}
+
+
+def test_trace_holds_the_spans(tmp_path):
+    sim = nt.Simulation(nt.SimConfig(n=64, force_backend="torch"),
+                        scene="plummer", device=CPU)
+    with profiling.trace(str(tmp_path / "tr")):
+        sim.run(2)
+        assert sim.frame == 2
+    (path,) = (tmp_path / "tr").glob("trace_*.json")
+    names = [str(e.get("name", ""))
+             for e in json.loads(path.read_text())["traceEvents"]]
+    for span in ("step", "forces", "collisions", "host_read.frame"):
+        assert span in names, span
+    assert names.count("step") == 2
+    assert any(x.startswith("aten::") for x in names)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def _syncs(fn):
+    """fn() under the sync debug mode "warn": the (file name, line text) of
+    each synchronizing call it made, and fn's result."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites = [(Path(w.filename).name,
+              linecache.getline(w.filename, w.lineno).strip())
+             for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return sites, out
+
+
+@pytest.mark.cuda
+def test_card_merger_syncs_are_the_host_reads(dev):
+    """One step of the N = 131,072 deep-chain merger (its compactions at
+    their own caps, the block pass): the syncs in `host_read` are
+    `host_syncs`, every other sync is an uncounted copy of a host
+    constant, and recording adds none."""
+    sim = _merger(131_072, dev)
+    sim.run(1)
+    state0 = sim.state
+    off, _ = _syncs(lambda: _step_from(sim, state0, record=False))
+    on, (_, rec) = _syncs(lambda: _step_from(sim, state0, record=True))
+    assert Counter(f for f, _ in on) == Counter(f for f, _ in off)
+    counted = [s for s in on if s[0] == "profiling.py"]
+    assert len(counted) == rec.counters["host_syncs"] >= 4
+    rest = [s for s in on if s[0] != "profiling.py"]
+    assert all(any(u in line for u in UNCOUNTED) for _, line in rest), rest
+    assert rec.counters["tree.rows_computed.deep"] > 0
+
+
+@pytest.mark.cuda
+def test_card_merger_step_bit_identical(dev):
+    """With index_add_ deterministic, recording changes no bit of the
+    step."""
+    sim = _merger(131_072, dev)
+    sim.run(1)
+    state0 = sim.state
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        off, _ = _step_from(sim, state0, record=False)
+        on, rec = _step_from(sim, state0, record=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _assert_same_state(off, on)
+    assert rec.device_ms("forces") > 0
+
+
+@pytest.mark.cuda
+def test_card_disc_run_makes_no_host_sync(dev):
+    sim = nt.Simulation(nt.SimConfig(n=25_000), scene="uniform_disc",
+                        device=dev)
+    sim.run(1)
+
+    def run10():
+        with profiling.recording() as rec:
+            sim.run(10)
+        return rec
+
+    sites, rec = _syncs(run10)
+    assert sites == [] and rec.counters["host_syncs"] == 0
+    assert len(rec.select("step")) == 10
+    assert rec.device_ms("step") > 0
