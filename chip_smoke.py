@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   1. device   — the card's name and power limit (nvidia-smi), torch, CUDA
                 and nvcc versions; exits non-zero without a CUDA device;
   2. build    — compiles the CUDA kernels from nbodysim_tpu_torch/csrc/,
-                and reads K1's inner loop and K2's batch test from the
-                library's SASS (cuobjdump): instructions per pair;
+                and reads K1's and the potential kernel's inner loops and
+                K2's batch test from the library's SASS (cuobjdump):
+                instructions per pair;
   3. K1       — the all-pairs gravity kernel against its plain torch
                 version on the card, on seven cases (both targets-per-thread
                 variants, the source split, one target and one source),
@@ -23,9 +24,12 @@ Phases, each printing its own lines:
                 step's device operations and idle share (torch.profiler), K1
                 and K2 again on the evolved state, one step through the
                 kernels against one step through the plain versions
-                (1e-5 * max|x|, max|v|);
+                (1e-5 * max|x|, max|v|); diagnostics() launching the
+                potential kernel once, the kernel on the evolved state
+                against the plain version in float64 (4e-6 relative);
   6. timings  — kernel and plain times at the main path's shapes (K2 on the
-                initial and the evolved disc), K1
+                initial and the evolved disc; the potential kernel on the
+                disc, with its bound), K1
                 pairs/s at N=65,536 and N=1,048,576, and the tree code at
                 N=1,048,576 uniform +-3e4 (bench.py:232's input, from a
                 generator of its own): one eval
@@ -208,9 +212,10 @@ def say(phase: str, msg: str) -> None:
 
 
 def sass_report(lib_path, cuobjdump) -> list:
-    """Instructions per pair in K1's inner loop and K2's batch test, read
-    from the built library's SASS: lines to print. K1's inner loop is the
-    kernel's shortest backward branch (16 sources x k targets); K2's batch
+    """Instructions per pair in K1's and the potential kernel's inner loops
+    and K2's batch test, read from the built library's SASS: lines to
+    print. An inner loop is the kernel's shortest backward branch (16
+    sources x k targets); K2's batch
     test is the straight run at the head of its second-longest loop, up to
     the first branch after its first compare (16 sources x 2 targets)."""
     import collections
@@ -234,6 +239,9 @@ def sass_report(lib_path, cuobjdump) -> list:
             ("allpairs_kernelILi2ELi2ELb0", "K1 2D k=2 inner loop", 32),
             ("allpairs_kernelILi2ELi4ELb0", "K1 2D k=4 inner loop", 64),
             ("allpairs_kernelILi3ELi4ELb0", "K1 3D k=4 inner loop", 64),
+            ("potential_kernelILi2ELi2E", "potential 2D k=2 inner loop", 32),
+            ("potential_kernelILi2ELi4E", "potential 2D k=4 inner loop", 64),
+            ("potential_kernelILi3ELi4E", "potential 3D k=4 inner loop", 64),
             ("collide_kernelILi2ELb0ELb0", "K2 2D batch test", 32),
             ("collide_kernelILi3ELb0ELb0", "K2 3D batch test", 32),
             ("collide_kernelILi2ELb1ELb1", "K5 2D cell test", 32)):
@@ -247,7 +255,7 @@ def sass_report(lib_path, cuobjdump) -> list:
                         and int(t.group(1), 16) < a),
                        key=lambda lh: lh[1] - lh[0])
         body = []
-        if what.startswith("K1"):
+        if what.startswith(("K1", "potential")):
             body = [op for a, op, _ in ins if loops[0][0] <= a <= loops[0][1]]
         else:
             lo, hi = loops[-2]
@@ -1260,7 +1268,8 @@ def main() -> None:
     from nbodysim_tpu_torch.kernels import _build
     from nbodysim_tpu_torch.kernels.allpairs import (
         _launch, allpairs_accelerations, allpairs_accelerations_plain,
-        allpairs_accelerations_wide, source_splits, targets_per_thread)
+        allpairs_accelerations_wide, allpairs_potential,
+        allpairs_potential_plain, source_splits, targets_per_thread)
     from nbodysim_tpu_torch.kernels.collide import (
         allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
         rect_pair_deltas_plain)
@@ -1509,11 +1518,30 @@ def main() -> None:
     for name in ("pos", "vel", "acc", "mass", "radius"):
         require(bool(torch.isfinite(getattr(st, name)).all()),
                 f"main path: non-finite {name}")
+    allpairs_potential.launches = 0
     d = sim.diagnostics()
     energies = [float(d.kinetic), float(d.potential), float(d.total_energy)]
     say("main", f"diagnostics: KE={energies[0]:.6e} PE={energies[1]:.6e} "
         f"E={energies[2]:.6e} |p|={float(d.momentum.abs().max()):.6e}")
     require(all(map(math.isfinite, energies)), "main path: non-finite energies")
+    pot_launches = allpairs_potential.launches
+    require(pot_launches == 1,
+            f"diagnostics() launched the potential kernel {pot_launches} "
+            f"times, expected once")
+    # The potential kernel (the HUD's) on the evolved state against the
+    # plain version in float64 and in float32 on the card: every term is
+    # positive, so 4e-6 relative (tests/test_torch_cuda.py's bound).
+    eps_hud = sim.config.eps_sq
+    pot = float(allpairs_potential(st.pos, st.mass, eps_sq=eps_hud))
+    pot64 = float(allpairs_potential_plain(st.pos.double(), st.mass.double(),
+                                           eps_sq=eps_hud))
+    pot32 = float(allpairs_potential_plain(st.pos, st.mass, eps_sq=eps_hud))
+    pot_err = abs(pot - pot64) / abs(pot64)
+    say("main", f"potential kernel N=25000 after 205 steps: {pot:.9e}, "
+        f"float64 plain {pot64:.9e} (rel {pot_err:.3e}), float32 plain "
+        f"{pot32:.9e} (rel {abs(pot32 - pot64) / abs(pot64):.3e}); "
+        f"{pot_launches} launch a diagnostics() call")
+    require(pot_err <= 4e-6, f"potential kernel off by {pot_err:.3e}")
     # The kernels again on the evolved state (these launches are not counted).
     k1_errs.append(k1_case("2D disc after 205 steps", st.pos, st.mass, 1.0))
     k2_errs.append(k2_case("2D disc after 205 steps", st.pos, st.vel, st.mass,
@@ -1626,6 +1654,21 @@ def main() -> None:
     # (d^2), 1 add + 1 mul ((r_i + r_j)^2) = 7 flops.
     def pair_bound(pairs, nbytes):
         return bound(nbytes, 13.0 * pairs, pairs)
+
+    # The potential kernel at the HUD's N: one rsqrt and 8 flops a pair
+    # (2 sub, r^2 in a mul and an FMA, + eps, the sum's FMA), the MUFU pipe
+    # bounds it.
+    n25 = 25_000.0
+    pot_bound = bound(4.0 * n25 * 3, 8.0 * n25 * n25, n25 * n25)
+    pot_ms = time_ms(lambda: allpairs_potential(disc.pos, disc.mass,
+                                                eps_sq=1.0), 20)
+    pot_plain_ms = time_ms(lambda: allpairs_potential_plain(
+        disc.pos, disc.mass, eps_sq=1.0), 3)
+    say("timings", f"potential disc N=25000: kernel {pot_ms:.4f} ms "
+        f"({n25 * n25 / pot_ms * 1e3:.4e} pairs/s), "
+        f"{100 * pot_bound[0] / pot_ms:.1f}% of its bound "
+        f"{pot_bound[0]:.4f} ms ({pot_bound[1]}); plain {pot_plain_ms:.4f} "
+        f"ms")
 
     # bench.py:232's input for the force headline and the tree code.
     square_gen = own_generator(6)
@@ -3772,7 +3815,6 @@ def main() -> None:
     say("surface", f"phase 12 took {time.perf_counter() - t_phase12:.1f} s")
 
 
-    n25 = 25_000.0
     k1_bound, k1_by = pair_bound(n25 * n25, 4.0 * n25 * (3 + 2))
     k2_bound, k2_by = bound(4.0 * n25 * (2 + 2 + 1 + 1 + 2 + 2),
                             7.0 * n25 * n25)
@@ -3797,6 +3839,11 @@ def main() -> None:
               "nbodysim_tpu/kernels/allpairs.py:56", merger_launches["K1"],
               k1_merger_err, k1_merger_ms, k1_rows_plain_ms,
               pair_bound(float(n_m) * n_m, 4.0 * n_m * (3 + 2))),
+        entry("potential allpairs_potential (N=25k HUD; launches: one "
+              "diagnostics() call)", allpairs_cu,
+              "none (the port adds it; nbodysim_tpu/physics/forces.py:158 "
+              "sums the potential in plain XLA)", pot_launches, pot_err,
+              pot_ms, pot_plain_ms, pot_bound),
         entry("K2 allpairs_collision_deltas",
               "nbodysim_tpu_torch/csrc/collide.cu",
               "nbodysim_tpu/kernels/collide.py:40", launches["K2"],

@@ -60,6 +60,9 @@
 // splits == 1 the block writes straight to `out`. The same entry point
 // serves K4 (many targets, few sources: the bulk <- outliers coupling),
 // which needs no split.
+//
+// The file also holds the potential's pair sum (potential_kernel, below),
+// which the energy diagnostics launch; its note says how it differs.
 
 #include <cuda_runtime.h>
 
@@ -233,6 +236,148 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   out[k] = a;
 }
 
+// The exact softened potential's pair sum, for the HUD and the energy
+// diagnostics:
+//
+//   P = sum_i m_i sum_{j, d_ij^2 > 0} m_j (d_ij^2 + eps^2)^(-1/2)
+//
+// (the caller scales it by -G/2). It replaces no TPU kernel: the JAX
+// package sums the potential in plain XLA (nbodysim_tpu/physics/forces.py:
+// potential_energy); the port's plain version of that sum, whose blocked
+// [2048, 4096] temporaries move ~50 GB of HBM at N=25k, held the viewer's
+// HUD at ~30 ms a frame. A sibling of K1 with K1's layout and staging (k
+// targets a thread, 8 slices, float4 sources double-buffered 512 to a
+// tile, inert padding, rsqrt.approx.ftz); K1 itself stays as it is. The
+// mask d^2 > 0 applies at every eps: unlike K1's vector term, the scalar
+// term of a self or coincident pair is m/eps, not 0. What bounds it: the
+// MUFU pipe (one rsqrt a pair, 4.18e12/s: 0.150 ms at N=25k) and
+// instruction issue, 9.62 SASS instructions a 2D pair at k = 2, 9.31 at
+// k = 4, 11.31 a 3D pair (3 FADD, 2 FFMA, FMUL, FSETP, FSEL, MUFU.RSQ and a
+// share of LDS.128 in 2D). Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+// N=25k in ~0.24 ms. The sums: each slice adds a
+// tile's 64 terms, then a compensated running total (as K1); a target's
+// 8 slice totals meet in double, in slice order, and are multiplied by
+// m_i; the block adds its targets in a fixed order (lanes' k in order,
+// then a fixed shuffle tree) into one double partial; a second launch adds
+// the partials in index order. No atomics, so two calls give the same
+// bits. A source split (gridDim.y) only adds partials.
+template <int DIM, int K>
+__global__ void __launch_bounds__(kThreads)
+potential_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
+                 double* __restrict__ partial, int n, int chunk,
+                 float eps_sq) {
+  constexpr int kBlockTargets = kWarp * K;
+  __shared__ float4 tile[2][kTile];
+  __shared__ double part[kSlices - 1][kBlockTargets];
+
+  const int lane = threadIdx.x % kWarp;
+  const int slice = threadIdx.x / kWarp;
+  const int first = blockIdx.x * kBlockTargets + lane;
+
+  float xi[K], yi[K], zi[K], phi[K], c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = first + kWarp * k;
+    xi[k] = i < n ? pos[i * DIM] : 0.f;
+    yi[k] = i < n ? pos[i * DIM + 1] : 0.f;
+    zi[k] = DIM == 3 && i < n ? pos[i * DIM + 2] : 0.f;
+    phi[k] = c[k] = 0.f;
+  }
+
+  const int s_begin = blockIdx.y * chunk;
+  const int s_end = min(n, s_begin + chunk);
+  const int tiles = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile
+                                    : 0;
+  float4 next[kStage];
+  if (tiles > 0) {
+#pragma unroll
+    for (int q = 0; q < kStage; ++q)
+      tile[0][threadIdx.x + q * kThreads] = pack_source<DIM>(
+          pos, mass, s_begin + threadIdx.x + q * kThreads, s_end, 1.f);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < tiles; ++t) {
+    const bool more = t + 1 < tiles;
+    if (more) {
+      const int base = s_begin + (t + 1) * kTile + threadIdx.x;
+#pragma unroll
+      for (int q = 0; q < kStage; ++q)
+        next[q] = pack_source<DIM>(pos, mass, base + q * kThreads, s_end,
+                                   1.f);
+    }
+    const float4* sl = tile[t & 1] + slice * kPerSlice;
+    float sp[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sp[k] = 0.f;
+#pragma unroll 16
+    for (int jj = 0; jj < kPerSlice; ++jj) {
+      const float4 q = sl[jj];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float dx = q.x - xi[k];
+        const float dy = q.y - yi[k];
+        float r_sq = dx * dx + dy * dy;
+        if (DIM == 3) {
+          const float dz = q.z - zi[k];
+          r_sq += dz * dz;
+        }
+        const float inv = rsqrt_ftz(r_sq + eps_sq);
+        sp[k] += q.w * (r_sq > 0.f ? inv : 0.f);  // rsqrt(0) = inf at eps 0
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) kahan_add(phi[k], c[k], sp[k]);
+    if (more) {
+#pragma unroll
+      for (int q = 0; q < kStage; ++q)
+        tile[(t + 1) & 1][threadIdx.x + q * kThreads] = next[q];
+    }
+    __syncthreads();
+  }
+
+  // The running total is phi - c (c holds what the last adds overshot).
+  if (slice > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      part[slice - 1][lane + kWarp * k] =
+          static_cast<double>(phi[k]) - static_cast<double>(c[k]);
+  }
+  __syncthreads();
+  if (slice == 0) {
+    double sum = 0.0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = first + kWarp * k;
+      double t = static_cast<double>(phi[k]) - static_cast<double>(c[k]);
+#pragma unroll
+      for (int p = 0; p < kSlices - 1; ++p) t += part[p][lane + kWarp * k];
+      if (i < n) sum += static_cast<double>(mass[i]) * t;
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2)
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+// *out = sum_p partial[p], p in index order, in double (one thread).
+__global__ void sum_partials_kernel(const double* __restrict__ partial,
+                                    float* __restrict__ out, int count) {
+  double a = 0.0;
+  for (int p = 0; p < count; ++p) a += partial[p];
+  *out = static_cast<float>(a);
+}
+
+template <int DIM, int K>
+void launch_potential(const float* pos, const float* mass, double* partial,
+                      int n, int splits, int chunk, float eps_sq,
+                      cudaStream_t stream) {
+  const dim3 grid((n + kWarp * K - 1) / (kWarp * K), splits);
+  potential_kernel<DIM, K><<<grid, kThreads, 0, stream>>>(
+      pos, mass, partial, n, chunk, eps_sq);
+}
+
 template <int DIM, int K>
 void launch(const float* tgt, const float* src, const float* src_mass,
             float* dst, int n, int s, int splits, int chunk, float eps_sq,
@@ -277,6 +422,34 @@ extern "C" int nb_allpairs_accelerations(
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return nb_sum_splits(scratch, out, n * dim, splits, stream);
+}
+
+// *out = sum_{i != j} m_i m_j (d_ij^2 + eps^2)^(-1/2) over pairs with
+// d_ij^2 > 0, f32. `partial` holds ceil(n / (32 k)) * splits doubles;
+// k: targets a thread, 2 or 4.
+extern "C" int nb_allpairs_potential(const float* pos, const float* mass,
+                                     double* partial, float* out, int n,
+                                     int dim, int splits, int k,
+                                     float eps_sq, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || splits <= 0 || partial == nullptr || (k != 2 && k != 4) ||
+      (dim != 2 && dim != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (n + splits - 1) / splits;
+  const int chunk = (per + kTile - 1) / kTile * kTile;
+  if (dim == 2 && k == 2)
+    launch_potential<2, 2>(pos, mass, partial, n, splits, chunk, eps_sq, st);
+  else if (dim == 2)
+    launch_potential<2, 4>(pos, mass, partial, n, splits, chunk, eps_sq, st);
+  else if (k == 2)
+    launch_potential<3, 2>(pos, mass, partial, n, splits, chunk, eps_sq, st);
+  else
+    launch_potential<3, 4>(pos, mass, partial, n, splits, chunk, eps_sq, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + kWarp * k - 1) / (kWarp * k);
+  sum_partials_kernel<<<1, 1, 0, st>>>(partial, out, blocks * splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[k] = sum_p part[p * count + k] for k < count, p in index order: the

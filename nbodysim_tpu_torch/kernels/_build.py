@@ -44,6 +44,8 @@ SIGNATURES = {
     # stream
     "nb_allpairs_accelerations": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                   _i, _f, _f, _vp),
+    # pos, mass, partial (f64), out, n, dim, splits, k, eps_sq, stream
+    "nb_allpairs_potential": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp),
     # pos, vel, mass, radius, out, n, row0, n_rows, dim, impulse, stream
     "nb_collision_deltas": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
                             _vp),

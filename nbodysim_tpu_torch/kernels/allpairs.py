@@ -21,6 +21,12 @@ tiling workaround; on the card K4 is a launch of the same kernel.
   * `packed_sources` — the sources as the kernel stages them: float4
     (x, y, z, G m) rows, padded to whole tiles with inert sources; plain
     torch, for the tests that hold the padding inert.
+  * `allpairs_potential` — the exact potential's pair sum
+    sum_{i != j, d > 0} m_i m_j / sqrt(d^2 + eps^2) (a kernel that the port
+    adds beside K1 in the same source; no TPU counterpart). On a CUDA
+    tensor it launches the kernel (or raises), on a CPU tensor it runs the
+    plain version, `allpairs_potential_plain`. Its own count,
+    `allpairs_potential.launches`.
 """
 
 from __future__ import annotations
@@ -149,6 +155,57 @@ def allpairs_accelerations_wide(
 allpairs_accelerations_wide.launches = 0
 
 
+def allpairs_potential_plain(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    eps_sq: float,
+    src_pos: Optional[torch.Tensor] = None,
+    src_mass: Optional[torch.Tensor] = None,
+    block_size: int = 2048,
+) -> torch.Tensor:
+    """sum_{i in pos, j in src, d != 0} m_i m_j / sqrt(d^2 + eps^2) in plain
+    torch, blocked as `allpairs_accelerations_plain`; the sources default
+    to the targets. A 0-dim tensor."""
+    if src_pos is None:
+        src_pos, src_mass = pos, mass
+
+    def kernel(t, s):
+        tp, tm = t
+        sp, sm = s
+        d = sp[None, :, :] - tp[:, None, :]
+        d_sq = (d * d).sum(-1)
+        pair = tm[:, None] * sm[None, :] * torch.rsqrt(d_sq + eps_sq)
+        return (torch.where(d_sq > 0.0, pair, 0.0).sum(1),)
+
+    (per_target,) = pairwise_blocked(
+        kernel, (pos, mass), (src_pos, src_mass), out_dims=((),),
+        dtype=pos.dtype, bs_t=block_size, bs_s=2 * block_size)
+    return per_target.sum()
+
+
+def allpairs_potential(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    eps_sq: float,
+    block_size: int = 2048,
+) -> torch.Tensor:
+    """sum_{i != j, d_ij > 0} m_i m_j / sqrt(d_ij^2 + eps^2) over `pos`
+    [N, D], a 0-dim f32 tensor. On a CUDA tensor it launches the kernel (or
+    raises); on a CPU tensor it runs the plain version, blocked by
+    `block_size` (which the kernel does not read)."""
+    if pos.device.type == "cpu":
+        return allpairs_potential_plain(pos, mass, eps_sq=eps_sq,
+                                        block_size=block_size)
+    out = _launch_potential(pos, mass, eps_sq)
+    allpairs_potential.launches += 1
+    return out
+
+
+allpairs_potential.launches = 0
+
+
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -216,4 +273,43 @@ def _launch(pos, src_pos, src_mass, eps_sq, g_const, name,
             None if scratch is None else scratch.data_ptr(), n, s, dim,
             splits, k, float(eps_sq), float(g_const), stream)
     check(status, "nb_allpairs_accelerations")
+    return out
+
+
+def _launch_potential(pos, mass, eps_sq, splits: Optional[int] = None,
+                      k: Optional[int] = None) -> torch.Tensor:
+    """One launch of csrc/allpairs.cu's potential kernel and its sum of the
+    blocks' partials, on CUDA tensors (`splits`, `k` as in `_launch`).
+    Counts nothing: the wrapper does."""
+    if pos.device.type != "cuda":
+        raise ValueError(f"no potential kernel for device {pos.device}")
+    from nbodysim_tpu_torch.kernels._build import check, f32_args, library
+
+    device = pos.device
+    p, m = f32_args(device, pos, mass)
+    n, dim = p.shape
+    if dim not in (2, 3) or m.shape != (n,):
+        raise ValueError(
+            f"shapes {tuple(p.shape)}, {tuple(m.shape)}: expected [N, D], "
+            f"[N], D in 2, 3")
+    if n * dim >= 2 ** 31:
+        raise ValueError(
+            "the potential kernel indexes with 32-bit ints: N * D must be "
+            "< 2^31")
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    if k is None:
+        k = targets_per_thread(n, device)
+    if splits is None:
+        splits = source_splits(n, n, device, WARP * k)
+    partial = torch.empty(-(-n // (WARP * k)) * splits, dtype=torch.float64,
+                          device=device)
+    out = torch.empty((), dtype=torch.float32, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.nb_allpairs_potential(
+            p.data_ptr(), m.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n, dim, splits, k, float(eps_sq), stream)
+    check(status, "nb_allpairs_potential")
     return out

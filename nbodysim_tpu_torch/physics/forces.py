@@ -27,11 +27,12 @@ from typing import Optional
 import torch
 
 from nbodysim_tpu_torch.config import SimConfig
-from nbodysim_tpu_torch.core.blocking import pairwise_blocked
 from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations,
     allpairs_accelerations_plain,
+    allpairs_potential,
+    allpairs_potential_plain,
 )
 from nbodysim_tpu_torch.physics.barneshut import (
     _OVERFLOW_CAP, bh_accelerations, bh_near_overflow)
@@ -65,20 +66,10 @@ def direct_accelerations(
 
 def _partial_potential(tgt, tgt_m, src, src_m, eps_sq: float,
                        block_size: int = 2048) -> torch.Tensor:
-    """sum_{i in tgt, j in src, d != 0} m_i m_j / sqrt(d^2 + eps^2)."""
-
-    def kernel(t, s):
-        tp, tm = t
-        sp, sm = s
-        d = sp[None, :, :] - tp[:, None, :]
-        d_sq = (d * d).sum(-1)
-        pair = tm[:, None] * sm[None, :] * torch.rsqrt(d_sq + eps_sq)
-        return (torch.where(d_sq > 0.0, pair, 0.0).sum(1),)
-
-    (per_target,) = pairwise_blocked(
-        kernel, (tgt, tgt_m), (src, src_m), out_dims=((),),
-        dtype=tgt.dtype, bs_t=block_size, bs_s=2 * block_size)
-    return per_target.sum()
+    """sum_{i in tgt, j in src, d != 0} m_i m_j / sqrt(d^2 + eps^2), plain
+    torch on any device."""
+    return allpairs_potential_plain(tgt, tgt_m, eps_sq=eps_sq, src_pos=src,
+                                    src_mass=src_m, block_size=block_size)
 
 
 def potential_energy(
@@ -89,9 +80,11 @@ def potential_energy(
     block_size: int = 2048,
 ) -> torch.Tensor:
     """U = -G/2 * sum_{i != j} m_i m_j / sqrt(d^2 + eps^2); the exact
-    potential of the force law above. A 0-dim tensor."""
-    return -0.5 * g_const * _partial_potential(
-        pos, mass, pos, mass, eps_sq, block_size)
+    potential of the force law above. A 0-dim tensor: on a CUDA tensor from
+    the potential kernel (kernels/allpairs.py), on a CPU tensor from the
+    plain version blocked by `block_size`."""
+    return -0.5 * g_const * allpairs_potential(
+        pos, mass, eps_sq=eps_sq, block_size=block_size)
 
 
 def resolve_backend(config: SimConfig, n: int, dim: int,

@@ -1,6 +1,8 @@
 """PyTorch port, K1: the plain version of the all-pairs gravity kernel (what
 the wrapper runs on a CPU tensor) against the JAX Pallas kernel in interpret
-mode and the JAX `direct_accelerations`, and the potential against JAX.
+mode and the JAX `direct_accelerations`, and the potential (the plain
+version that the potential kernel's wrapper runs on a CPU tensor) against
+JAX.
 
 Tolerance: 1e-5 * max|a|, as tests/test_allpairs_kernel.py holds the Pallas
 kernel; f32 sums taken in another order differ by far less.
@@ -17,7 +19,7 @@ from nbodysim_tpu.kernels.allpairs import (
 from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu_torch.kernels.allpairs import (
     PAD_POS, TILE, allpairs_accelerations, allpairs_accelerations_plain,
-    allpairs_accelerations_wide, packed_sources)
+    allpairs_accelerations_wide, allpairs_potential, packed_sources)
 from nbodysim_tpu_torch.physics import forces as tforces
 
 from _torch_helpers import as_np, rand_system, as_t
@@ -110,6 +112,27 @@ def test_potential_matches_jax():
     jpart = float(jforces._partial_potential(pos[:100], mass[:100], pos,
                                              mass, 1.0))
     assert abs(part - jpart) / abs(jpart) < 1e-5
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("eps_sq", [0.0, 1.0])
+def test_potential_wrapper_on_cpu_is_the_plain_path(dim, eps_sq):
+    """The potential kernel's wrapper on a CPU tensor launches nothing and
+    returns the plain pair sum bit for bit (with a coincident pair and
+    massless bodies), which potential_energy scales by -G/2; within 1e-5 of
+    the JAX package's potential_energy (f32 sums in another order)."""
+    pos, mass = rand_system(257, dim=dim, seed=20 + dim)
+    pos[9] = pos[4]
+    mass[::11] = 0.0
+    p, m = as_t(pos), as_t(mass)
+    before = allpairs_potential.launches
+    got = allpairs_potential(p, m, eps_sq=eps_sq)
+    assert allpairs_potential.launches == before
+    assert torch.equal(got, tforces._partial_potential(p, m, p, m, eps_sq))
+    assert torch.equal(tforces.potential_energy(p, m, eps_sq, 2.0), -got)
+    ref = float(jforces.potential_energy(jnp.asarray(pos), jnp.asarray(mass),
+                                         eps_sq, 2.0))
+    assert abs(-float(got) - ref) <= 1e-5 * abs(ref)
 
 
 @pytest.mark.parametrize("dim", [2, 3])

@@ -1,5 +1,6 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7 against their
-plain torch versions on the card, their launch counts, the N=25k main path,
+"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7 and the potential
+kernel against their plain torch versions on the card (the potential also
+against the float64 oracle), their launch counts, the N=25k main path,
 the 2D and 3D tree code and the large-N collision passes through the kernels
 against the same code through the plain versions.
 
@@ -16,8 +17,9 @@ import torch
 
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu_torch.kernels.allpairs import (
-    _launch, allpairs_accelerations, allpairs_accelerations_plain,
-    allpairs_accelerations_wide)
+    _launch, _launch_potential, allpairs_accelerations,
+    allpairs_accelerations_plain, allpairs_accelerations_wide,
+    allpairs_potential, allpairs_potential_plain)
 from nbodysim_tpu_torch.kernels.collide import (
     allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
     rect_pair_deltas_plain)
@@ -189,6 +191,15 @@ def test_wrappers_reject_malformed_input(dev):
     with pytest.raises(ValueError):
         allpairs_accelerations(torch.rand(10, 2, device=dev),
                                torch.rand(10), eps_sq=1.0)
+    with pytest.raises(ValueError):
+        allpairs_potential(torch.rand(10, 4, device=dev),
+                           torch.rand(10, device=dev), eps_sq=1.0)
+    with pytest.raises(ValueError):
+        allpairs_potential(torch.rand(10, 2, device=dev),
+                           torch.rand(9, device=dev), eps_sq=1.0)
+    with pytest.raises(ValueError):
+        allpairs_potential(torch.rand(10, 2, device=dev), torch.rand(10),
+                           eps_sq=1.0)
     with pytest.raises(ValueError):
         allpairs_collision_deltas(torch.rand(10, 2, device=dev),
                                   torch.rand(9, 2, device=dev),
@@ -988,3 +999,98 @@ def test_checkpoint_roundtrip_on_the_card(dev, tmp_path):
     sim.run(2)
     assert torch.equal(resumed.state.pos, sim.state.pos)
     assert torch.equal(resumed.state.vel, sim.state.vel)
+
+
+# The potential kernel. Every pair term m_i m_j / r is >= 0, so the sum's
+# relative error is bounded by its terms' and its additions': the rsqrt
+# (rsqrt.approx, <= 2 ulp) and the roundings of d^2 add <= ~4 f32 ulps
+# (5e-7) a term, and the 64-term tile sums at most 63 ulps in the worst
+# case, typically ~sqrt(64); the totals are compensated, then double. Hence
+# 4e-6 against the float64 oracle. The plain version rounds its own f32
+# sums of 4096-term chunks and its torch.sum over targets: 1e-5 between
+# the two, as tests/test_torch_allpairs.py holds the plain version to JAX.
+POT_ORACLE_RTOL = 4e-6
+POT_PLAIN_RTOL = 1e-5
+
+
+def _pot_inputs(dev, dim, n, eps_sq):
+    """n bodies in [-1e3, 1e3]^D, every 5th from the third massless; at
+    eps = 0 the last body sits on the first (a coincident pair of massive
+    bodies, masked)."""
+    g = _gen(dev, 50 + dim)
+    pos = _uniform(g, (n, dim), -1e3, 1e3)
+    mass = _uniform(g, (n,), 0.1, 10.0)
+    mass[2::5] = 0.0
+    if eps_sq == 0.0 and n > 1:
+        pos[n - 1] = pos[0]
+        mass[n - 1] = 3.0
+    return pos, mass
+
+
+def _oracle_pair_sum(pos, mass, eps_sq):
+    """sum_{i != j} m_i m_j / sqrt(d^2 + eps^2) over d^2 > 0, float64."""
+    from nbodysim_tpu_torch.oracle import oracle_potential_energy
+
+    return -2.0 * oracle_potential_energy(pos.cpu(), mass.cpu(), eps_sq)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n", [1, 2, 511, 513, 4096, 25_000])
+@pytest.mark.parametrize("eps_sq", [0.0, 1.0])
+def test_potential_matches_oracle_and_plain(dev, dim, n, eps_sq):
+    """The potential kernel on ragged N (one body, one pair, a tile's
+    ragged end either side of 512, the drift gate's N = 4096 with its
+    source split, the HUD's N = 25,000), at eps = 0 with coincident bodies
+    and at eps = 1, with massless bodies: against the float64 oracle and the
+    plain version on the card; launched once a call."""
+    pos, mass = _pot_inputs(dev, dim, n, eps_sq)
+    before = allpairs_potential.launches
+    got = allpairs_potential(pos, mass, eps_sq=eps_sq)
+    assert allpairs_potential.launches == before + 1
+    assert got.shape == () and got.dtype == torch.float32 and got.is_cuda
+    plain = allpairs_potential_plain(pos, mass, eps_sq=eps_sq)
+    got, plain = float(got), float(plain)
+    ref = _oracle_pair_sum(pos, mass, eps_sq)
+    if n == 1 or (n == 2 and eps_sq == 0.0):   # no pair, or one coincident
+        assert got == plain == ref == 0.0
+        return
+    assert abs(got - ref) <= POT_ORACLE_RTOL * abs(ref)
+    assert abs(got - plain) <= POT_PLAIN_RTOL * abs(plain)
+
+
+def test_potential_on_the_disc(dev):
+    """The HUD's input: the N = 25,000 disc at SimConfig()'s softening,
+    through potential_energy (-G/2 times the kernel's pair sum), against
+    the float64 oracle and the plain version; two calls give the same
+    bits."""
+    cfg = nt.SimConfig(n=25_000)
+    s = nt.init_scene("uniform_disc", cfg, device=dev)
+    from nbodysim_tpu_torch.oracle import oracle_potential_energy
+    from nbodysim_tpu_torch.physics.forces import (
+        _partial_potential, potential_energy)
+
+    got = potential_energy(s.pos, s.mass, cfg.eps_sq, cfg.g_const)
+    assert torch.equal(got, potential_energy(s.pos, s.mass, cfg.eps_sq,
+                                             cfg.g_const))
+    ref = oracle_potential_energy(s.pos.cpu(), s.mass.cpu(), cfg.eps_sq,
+                                  cfg.g_const)
+    plain = -0.5 * cfg.g_const * float(_partial_potential(
+        s.pos, s.mass, s.pos, s.mass, cfg.eps_sq))
+    assert abs(float(got) - ref) <= POT_ORACLE_RTOL * abs(ref)
+    assert abs(float(got) - plain) <= POT_PLAIN_RTOL * abs(plain)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n,splits", [(700, 1), (700, 3), (5000, 1),
+                                      (5000, 7)])
+def test_potential_launches_are_deterministic(dev, k, dim, n, splits):
+    """No atomics: at k targets a thread, split over its sources or not,
+    two launches give the same bits, within the plain tolerance of the
+    plain version."""
+    pos, mass = _pot_inputs(dev, dim, n, 1.0)
+    a = _launch_potential(pos, mass, 1.0, splits=splits, k=k)
+    b = _launch_potential(pos, mass, 1.0, splits=splits, k=k)
+    assert torch.equal(a, b)
+    plain = float(allpairs_potential_plain(pos, mass, eps_sq=1.0))
+    assert abs(float(a) - plain) <= POT_PLAIN_RTOL * abs(plain)

@@ -15,8 +15,9 @@ deep-chain merger, `host_syncs` equals the syncs that
 `torch.cuda.set_sync_debug_mode("warn")` reports less the uncounted
 host-to-device copies of host constants, recording adds no sync, and the
 states are bit-identical with recording on and off; `Simulation.run(10)`
-on the N = 25,000 disc makes no host sync. This file imports no JAX; on a
-machine with a card, run:
+on the N = 25,000 disc makes no host sync; a viewer frame's `hud_text()`
+launches the potential kernel once and syncs only in its two `host_read`s.
+This file imports no JAX; on a machine with a card, run:
 
     python -m pytest --noconftest -q tests/test_torch_tracing.py
 """
@@ -33,6 +34,7 @@ import torch
 import nbodysim_tpu_torch as nt
 from nbodysim_tpu_torch.app.viewer import Viewer
 from nbodysim_tpu_torch.diagnostics import profiling
+from nbodysim_tpu_torch.kernels.allpairs import allpairs_potential
 from nbodysim_tpu_torch.physics import barneshut as bh
 from nbodysim_tpu_torch.render.splat import RenderConfig
 
@@ -193,9 +195,11 @@ def test_spans_nest(merger_step):
 def test_viewer_spans_and_host_reads():
     v = Viewer(nt.SimConfig(n=256), render_config=RenderConfig(
         width=32, height=24, scale=0.005), steps_per_frame=2, device=CPU)
+    launches = allpairs_potential.launches
     with profiling.recording() as rec:
         v.frame()
         hud = v.hud_text()
+    assert allpairs_potential.launches == launches   # the CPU: plain path
     assert "| frame 2 |" in hud
     assert [s.name for s in rec.spans if s.parent is None] == [
         "step", "step", "render", "hud"]
@@ -317,3 +321,29 @@ def test_card_disc_run_makes_no_host_sync(dev):
     assert sites == [] and rec.counters["host_syncs"] == 0
     assert len(rec.select("step")) == 10
     assert rec.device_ms("step") > 0
+
+
+@pytest.mark.cuda
+def test_card_viewer_hud_launches_the_potential_kernel_once(dev):
+    """On the N = 25,000 disc a frame's hud_text() launches the potential
+    kernel once and syncs only in its two host_reads (the energy, the
+    frame)."""
+    v = Viewer(nt.SimConfig(n=25_000), render_config=RenderConfig(
+        width=90, height=68, scale=0.005), steps_per_frame=2, device=dev)
+    v.frame()
+    v.hud_text()
+    v.frame()
+    launches = allpairs_potential.launches
+
+    def hud():
+        with profiling.recording() as rec:
+            text = v.hud_text()
+        return rec, text
+
+    sites, (rec, text) = _syncs(hud)
+    assert allpairs_potential.launches == launches + 1
+    assert "| frame 4 |" in text
+    assert [s.name for s in rec.select("host_read.", under="hud")] == [
+        "host_read.hud_energy", "host_read.frame"]
+    assert rec.counters["host_syncs"] == 2
+    assert [f for f, _ in sites] == ["profiling.py"] * 2, sites
