@@ -10,16 +10,19 @@ The numbers (a cell's limits file names those it compares):
   acc_p50 = median_i |a_i - a_i^ref| / |a_i^ref|
 
 so that a call that returns its state unchanged reads 1 in the first two.
-Up to 65,536 bodies the reference steps every body as many steps as the
-call made. Above that a call is one step, checked stage by stage
-(`staged`): the forces on a sample against exact sums over all bodies,
-and the integration and collisions of every body from the program's state
-and its own (so judged) forces. The sample has three strata, each drawn by
-a rule of the benchmark's own: `rand`, SAMPLE bodies drawn from the seed
-(with the big bodies, `acc_p50`); `far`, the FAR bodies farthest (in the
-largest coordinate) from the centre of mass of the others, which a tree
-code sets apart; `core`, the CORE bodies nearest each big body, where the
-scene is densest. With rel_i = |a_i - a_i^ref| / |a_i^ref|:
+Up to 65,536 bodies (FULL_LIMIT) the reference steps every body as many
+steps as the call made. Above that a call is one step, checked stage by
+stage (`staged`), under either integrator the configuration may state
+(leapfrog KDK or semi-implicit Euler): the forces on a sample against
+exact sums over all bodies, and the integration and collisions of every
+body from the program's state and its own (so judged) forces. The sample
+has three strata, each drawn by a rule of the benchmark's own: `rand`,
+SAMPLE bodies drawn from the seed (with the central masses, each body that
+holds at least CENTRAL of the total mass; `acc_p50`); `far`, the FAR
+bodies farthest (in the largest coordinate) from the centre of mass of the
+others, which a tree code sets apart; `core`, the CORE bodies nearest each
+central mass, where the scene is densest. With rel_i = |a_i - a_i^ref| /
+|a_i^ref|:
 
   acc_p50, acc_p99 = the median and 99th percentile of rel over `rand`
   acc_far_max      = the largest rel over `far`
@@ -52,6 +55,7 @@ FULL_LIMIT = 65_536
 SAMPLE = 2048
 FAR = 256            # at most 1/64 of the bodies
 CORE = 256
+CENTRAL = 0.01       # the share of the total mass that makes a central mass
 
 
 def _state(d: dict, dtype) -> dict:
@@ -97,16 +101,14 @@ def _spread(pos, radius, taint, sim):
     return out
 
 
-def strata(pos: torch.Tensor, mass: torch.Tensor, radius: torch.Tensor,
-           seed: int) -> dict:
+def strata(pos: torch.Tensor, mass: torch.Tensor, seed: int) -> dict:
     """The force sample's strata, {name: indices} (see the module's
-    docstring); `rand` holds the big bodies too."""
+    docstring); `rand` holds the central masses too."""
     n = pos.shape[0]
     dev = pos.device
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
-    r = radius.double()
-    big = r > ref.BIG_FACTOR * r.median()
+    big = mass.double() >= CENTRAL * mass.double().sum()
     big_idx = torch.nonzero(big).squeeze(1)
     p = pos.double()
     m = torch.where(big, 0.0, mass.double())
@@ -124,12 +126,24 @@ def strata(pos: torch.Tensor, mass: torch.Tensor, radius: torch.Tensor,
     return out
 
 
+def _euler(pos, vel, acc, dt, sim):
+    """Semi-implicit Euler once the forces are known: kick, clamp,
+    boundary at the positions before the step, drift."""
+    vel = ref.finish_velocity(pos, vel + acc * dt, dt, sim)
+    return pos + vel * dt, vel
+
+
 def staged(prev: dict, acc_in: torch.Tensor, sim: dict, seed: int,
            dtype=None) -> dict:
-    """One leapfrog step above FULL_LIMIT bodies, stage by stage.
+    """One step above FULL_LIMIT bodies, stage by stage, in the order
+    `reference.step` takes for the configuration's integrator.
 
-    Forces: exact accelerations (`dtype`, float64 by default) at the
-    drifted positions of the sample's bodies (`strata`). Integration and
+    Forces: exact accelerations (`dtype`, float64 by default) of the
+    sample's bodies (`strata`) where the step takes its forces: at the
+    drifted positions (leapfrog KDK) or at the positions before the step
+    (semi-implicit Euler, which drifts last). The program's state after a
+    step holds those same forces as `acc` under either integrator: a(x)
+    of the drifted x, or a(x) of the x before the step. Integration and
     collisions of every body: from `prev` and the step's accelerations
     `acc_in` (the program's own, which the force stage judges), in float32
     as the configuration states, the collision tests in float32 and their
@@ -137,17 +151,22 @@ def staged(prev: dict, acc_in: torch.Tensor, sim: dict, seed: int,
     control). Returns {pos, vel} of every body, the collision corrections
     {dpos, dvel} (None without collisions), the sample's {idx, acc} and
     its strata as positions in idx, and the pairs resolved."""
-    if sim["integrator"] != "leapfrog_kdk":
-        raise ValueError("the staged check steps leapfrog")
+    euler = sim["integrator"] == "euler_symplectic"
+    if not euler and sim["integrator"] != "leapfrog_kdk":
+        raise ValueError("the staged check steps leapfrog_kdk or "
+                         f"euler_symplectic, not {sim['integrator']!r}")
     dt = ref.f32(sim["dt"])
     half = 0.5 * dt
     low = dtype or torch.float32
     st = _state(prev, low)
-    vel_h = st["vel"] + st["acc"] * half
-    pos = st["pos"] + vel_h * dt
-    # The strata from the float32 drift in either precision.
-    pos32 = prev["pos"] + (prev["vel"] + prev["acc"] * half) * dt
-    parts = strata(pos32, prev["mass"], prev["radius"], seed)
+    if euler:
+        pos, pos32 = st["pos"], prev["pos"]
+    else:
+        vel_h = st["vel"] + st["acc"] * half
+        pos = st["pos"] + vel_h * dt
+        # The strata from the float32 drift in either precision.
+        pos32 = prev["pos"] + (prev["vel"] + prev["acc"] * half) * dt
+    parts = strata(pos32, prev["mass"], seed)
     idx = torch.cat(list(parts.values()))
     spans, at = {}, 0
     for name, ix in parts.items():
@@ -159,7 +178,14 @@ def staged(prev: dict, acc_in: torch.Tensor, sim: dict, seed: int,
         # The control integrates with its own forces where it has them.
         acc_in = acc_in.clone()
         acc_in[idx] = acc.to(acc_in.dtype)
-    vel = ref.finish_velocity(pos, vel_h + acc_in.to(low) * half, dt, sim)
+    if euler:
+        pos, vel = _euler(pos, st["vel"], acc_in.to(low), dt, sim)
+        # The float32 step in either precision, for the candidate pairs.
+        pos32 = pos if dtype is None else _euler(
+            prev["pos"], prev["vel"], acc_in.float(), dt, sim)[0]
+    else:
+        vel = ref.finish_velocity(pos, vel_h + acc_in.to(low) * half, dt,
+                                  sim)
     resolved, dpos, dvel = 0, None, None
     if sim["enable_collisions"]:
         # The candidate pairs come from the float32 drift in either

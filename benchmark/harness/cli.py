@@ -181,13 +181,19 @@ def power_limit() -> str:
         return "unknown"
 
 
-def resolved(cfg) -> dict:
-    """The resolved configuration the window ran, with the tree's levels
-    where the program exposes its resolvers."""
+def resolved(cfg, state) -> dict:
+    """The resolved configuration the window ran on `state`, with the
+    tree's levels and the collision pass that runs (`collision_pass`:
+    dense, bucket, hash or block) where the program exposes its
+    resolvers."""
+    from nbodysim_tpu_torch.physics import collisions
+
     out = {k: getattr(cfg, k) for k in (
         "n", "integrator", "force_backend", "bh_levels", "bh_deep_levels",
         "bh_tile_levels", "bh_tile_size", "bh_tile_count", "bh_nf_sparse",
         "enable_collisions", "collision_broad_phase", "collision_cell_size")}
+    out["collision_pass"] = (collisions._broad_phase(state, cfg)
+                             if cfg.enable_collisions else None)
     if cfg.force_backend == "bh" and cfg.dim == 2:
         from nbodysim_tpu_torch.physics import barneshut as bh
 
@@ -307,7 +313,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                                       "unit": m["unit"]}
     info = {"workload": workload, "seed": seed, "steps": steps,
             "calls": calls, "window_s": win_s, "warm_call_s": warm_s,
-            "memory_peak_bytes": peak, "resolved": resolved(ctx.config),
+            "memory_peak_bytes": peak,
+            "resolved": resolved(ctx.config, out_st),
             "card": power_limit() if device.type == "cuda" else "cpu"}
 
     # The program's objects go before the reference runs; its states

@@ -156,8 +156,7 @@ def applies(name: str, resolved: dict) -> bool:
     if name == "no_collisions":
         return resolved["enable_collisions"]
     if name in ("no_block", "no_residual"):
-        return resolved["enable_collisions"] and \
-            resolved["collision_broad_phase"] == "block"
+        return resolved["collision_pass"] == "block"
     return True
 
 

@@ -15,17 +15,18 @@ and imports nothing of the program.
     change times t.
 
 Everything is computed in `dtype` (float64 for the reference, bfloat16 for
-the control). Pairs are found by a uniform grid over the bodies whose radius
-is at most `BIG_FACTOR` times the median, and every larger body is tested
-against all. A pair whose overlap or approach test lies within the rounding
-of float32 positions and velocities of its threshold is ambiguous: both
-pairs are listed (`Collisions.ambiguous`), and the comparison leaves their
-bodies out.
+the control). Pairs are found by uniform grids, one a size class of radius
+(each `BIG_FACTOR` times the last, from the median): a body meets the bodies
+of its own and smaller classes in its neighbouring cells. A pair whose
+overlap or approach test lies within the rounding of float32 positions and
+velocities of its threshold is ambiguous: both pairs are listed
+(`Collisions.ambiguous`), and the comparison leaves their bodies out.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -125,58 +126,60 @@ def finish_velocity(pos, vel, dt, sim):
 # Collisions
 # ---------------------------------------------------------------------------
 
+def radius_class(radius: torch.Tensor) -> torch.Tensor:
+    """Each body's size class: 0 up to BIG_FACTOR x the median radius, k
+    up to BIG_FACTOR^(k+1) x the median."""
+    r = radius.double()
+    base = BIG_FACTOR * max(float(r.median()), 1e-30)
+    k = torch.ceil(torch.log(r / base) / math.log(BIG_FACTOR))
+    return torch.nan_to_num(k, nan=0.0, neginf=0.0).clamp_min(0).long()
+
+
 def candidate_pairs(pos: torch.Tensor, radius: torch.Tensor,
                     reach: float = 0.0):
-    """Every unordered pair (i < j) with |x_i - x_j| <= r_i + r_j + reach:
-    a uniform grid of cells of 2 * (the small bodies' largest radius) +
-    reach over the small bodies, each cell against its 3^D neighbours, and
-    every big body (radius > BIG_FACTOR x median) against all."""
-    n, dim = pos.shape
+    """Every pair (i, j) of bodies, once, with |x_i - x_j| <= r_i + r_j +
+    reach. For each size class k (`radius_class`): a uniform grid of cells of
+    2 * (the largest radius of classes <= k) + reach over the bodies of
+    those classes, each cell of a class-k body against its 3^D neighbours.
+    Class 0 is the bulk of the bodies; a larger body thus meets only the
+    bodies near it, however many such bodies there are."""
     dev = pos.device
     r = radius.double()
-    big = r > BIG_FACTOR * r.median()
-    small_idx = torch.nonzero(~big).squeeze(1)
-    big_idx = torch.nonzero(big).squeeze(1)
+    cls = radius_class(radius)
     ii, jj = [], []
-    if small_idx.numel():
-        cell = 2.0 * float(r[small_idx].max()) + reach + 1e-6
-        p = pos[small_idx].double()
+    for k in torch.unique(cls).tolist():
+        pts = torch.nonzero(cls <= k).squeeze(1)
+        cell = 2.0 * float(r[pts].max()) + reach + 1e-6
+        p = pos[pts].double()
         c = torch.floor((p - p.min(0).values) / cell).long()
         span = int(c.max()) + 3
         key = torch.zeros(c.shape[0], dtype=torch.long, device=dev)
-        for k in range(dim):
-            key = key * span + (c[:, k] + 1)
+        for d in range(pos.shape[1]):
+            key = key * span + (c[:, d] + 1)
         order = torch.argsort(key)
         skey = key[order]
-        for off in itertools.product((-1, 0, 1), repeat=dim):
+        query = torch.nonzero(cls[pts] == k).squeeze(1)
+        for off in itertools.product((-1, 0, 1), repeat=pos.shape[1]):
             shift = 0
             for o in off:
                 shift = shift * span + o
-            nk = key + shift
+            nk = key[query] + shift
             lo = torch.searchsorted(skey, nk, side="left")
             hi = torch.searchsorted(skey, nk, side="right")
             cnt = hi - lo
             tot = int(cnt.sum())
             if tot == 0:
                 continue
-            a = torch.repeat_interleave(
-                torch.arange(key.shape[0], device=dev), cnt)
+            a = pts[torch.repeat_interleave(query, cnt)]
             start = torch.repeat_interleave(lo, cnt)
             first = torch.cumsum(cnt, 0) - cnt
             rank = torch.arange(tot, device=dev) - torch.repeat_interleave(
                 first, cnt)
-            b = order[start + rank]
-            keep = a < b
-            ii.append(small_idx[a[keep]])
-            jj.append(small_idx[b[keep]])
-    if big_idx.numel():
-        every = torch.arange(n, device=dev)
-        a = big_idx.repeat_interleave(n)
-        b = every.repeat(big_idx.numel())
-        # each big against every small, and against bigs of higher index
-        keep = (b != a) & ~(big[b] & (b < a))
-        ii.append(a[keep])
-        jj.append(b[keep])
+            b = pts[order[start + rank]]
+            # a pair within the class once; a smaller partner always
+            keep = (a < b) | (cls[b] < k)
+            ii.append(a[keep])
+            jj.append(b[keep])
     if not ii:
         e = torch.zeros(0, dtype=torch.long, device=dev)
         return e, e

@@ -6,7 +6,11 @@ correctness limits (`limits/<workload>.json`), the scene generator
 metric split by the end-to-end metric it moves (`device_idle_pct.viewer`)
 is read by the reader of the name before its first dot. A
 later cell, configuration or metric is a new file and a new entry; no file
-here names one."""
+here names one. A cell also brings the sizes its CPU tests run at
+(`tests/scales/<workload>.json`), and the comparison takes a cell of
+either integrator the program has at any size (harness/check.py stages
+the step of either above FULL_LIMIT bodies): no test or harness file
+names a cell."""
 
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """CPU tests that BENCHMARK.json and the files it names keep to the
 benchmark's contract: names and units, a file for every configuration,
-traffic mix, limit set and per-layer metric, every metric's `moves`
-reported in each of its cells, and no JAX in what a run imports."""
+traffic mix, limit set, per-layer metric and CPU test scale, every
+metric's `moves` reported in each of its cells, and no JAX in what a run
+imports."""
 
 import json
 import os
@@ -15,6 +16,8 @@ import pytest
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in SPEC["workloads"]]
+SCALES = BENCH / "tests" / "scales"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "nbodysim_tpu"}
@@ -70,6 +73,19 @@ def test_files_exist():
         assert (BENCH / "metrics" / f"{reader}.py").is_file()
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_has_a_test_scale(cell):
+    """Each cell names the sizes its CPU tests run at in a file of its own:
+    "check" (configuration fields for test_bench_correct.py), optionally
+    "check_traffic" (traffic fields there) and "rehearsal" (configuration
+    fields of the traced rehearsals here and in test_bench_program.py)."""
+    scale = json.loads((SCALES / f"{cell}.json").read_text())
+    assert set(scale) <= {"why", "check", "check_traffic", "rehearsal"}
+    assert scale["check"]["n"] <= 4096
+    assert scale.get("rehearsal", {"n": 0})["n"] <= 4096
+    assert 1 <= len(scale["why"]) <= 400
+
+
 def test_every_metric_moves_what_its_cells_report():
     e2e = {m["name"]: m for m in SPEC["end_to_end"]}
     cells = [w["name"] for w in SPEC["workloads"]]
@@ -98,23 +114,32 @@ REHEARSAL = r"""
 import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[2]]
 from harness import cli
-for wl, n in (("disc25k.viewer", 256), ("disc25k.batch", 256),
-              ("merger4m.collide", 1024)):
-    scale = {"n": n}
-    if wl.startswith("merger"):
-        scale.update(force_backend="bh", bh_deep_levels=-1, bh_levels=3,
-                     bh_tile_size=8)
+for wl, scale in json.loads(sys.argv[3]).items():
     cli.run_cell(wl, 5, 0.05, True, device="cpu", scale=scale,
                  out=lambda s: None)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 
+def rehearsals() -> dict:
+    """{cell: its rehearsal scale} of the cells whose scale file has one."""
+    out = {}
+    for cell in CELLS:
+        scale = json.loads((SCALES / f"{cell}.json").read_text())
+        if "rehearsal" in scale:
+            out[cell] = scale["rehearsal"]
+    return out
+
+
 def test_rehearsal_imports_no_jax():
-    """A traced rehearsal of three cells on the CPU, in a fresh process:
-    no module it loaded has a forbidden top-level name."""
+    """A traced rehearsal on the CPU, in a fresh process, of each cell
+    with a rehearsal scale: no module it loaded has a forbidden top-level
+    name."""
+    cells = rehearsals()
+    assert cells
     out = subprocess.run(
-        [sys.executable, "-c", REHEARSAL, str(BENCH), str(ROOT)],
+        [sys.executable, "-c", REHEARSAL, str(BENCH), str(ROOT),
+         json.dumps(cells)],
         capture_output=True, text=True, timeout=600, check=True,
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))

@@ -5,9 +5,13 @@ committed limits, and it fails them with the timed path broken underneath
 that show at this size) and with the control (the plain reference computed
 in bfloat16) in the program's place.
 
-Above 65,536 bodies the comparison samples; here the limit is lowered so
-that the merger cells take that path too, and the merger's collisions take
-the block pass that they take at full size.
+Each cell runs at the size its scale file gives (`scales/<workload>.json`,
+its "check" fields over the configuration's, and "check_traffic" over the
+traffic's), so that a cell added later brings a data file and edits no
+test. Above 65,536 bodies the comparison stages the step; here that limit
+is lowered to 1,024 so that the cells whose full size takes that path
+(under leapfrog or Euler) take it too, on the tree and the collision pass
+that they take at full size.
 """
 
 import json
@@ -28,6 +32,7 @@ torch.set_num_threads(1)
 
 SPEC = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
+SCALES = BENCH / "tests" / "scales"
 
 
 # Faults that read only at full size, where the discs' own field is a
@@ -37,26 +42,16 @@ CELLS = [w["name"] for w in SPEC["workloads"]]
 AT_FULL_SIZE = ("outliers", "deep_rows", "tiles", "no_residual")
 
 
-def _scale(workload):
-    if workload.startswith("merger"):
-        return {"n": 2048, "bh_levels": 3, "bh_tile_size": 8,
-                "collision_broad_phase": "block"}
-    return {"n": 256}
-
-
 @pytest.fixture(autouse=True)
-def _sampled_mergers(monkeypatch):
+def _staged_above_1024(monkeypatch):
     monkeypatch.setattr(check, "FULL_LIMIT", 1024)
 
 
 def _run(workload, seed, **kw):
-    # A small disc packs a larger share of its bodies into the Lorenz
-    # track's dense start, where 100 steps decorrelate any two float
-    # orders; the batch cell's calls are cut to 5 steps here.
-    traffic = {"steps_per_call": 5} if workload == "disc25k.batch" else None
+    scale = json.loads((SCALES / f"{workload}.json").read_text())
     res, info = cli.run_cell(workload, seed, 0.05, False, device="cpu",
-                             scale=_scale(workload), out=lambda s: None,
-                             traffic=traffic, **kw)
+                             scale=scale["check"], out=lambda s: None,
+                             traffic=scale.get("check_traffic"), **kw)
     return res, info
 
 

@@ -1,6 +1,7 @@
 """The metrics that read the program's own spans and counters (the
-`program` probe), in a traced rehearsal on the CPU at the sizes of
-test_bench_contract.py's REHEARSAL: the host-clock and counter metrics
+`program` probe), in a traced rehearsal on the CPU of each cell that
+reports them, at its scale file's "rehearsal" size (as
+test_bench_contract.py's rehearsal): the host-clock and counter metrics
 read numbers, the device-clock ones None (no card), and the tree's row
 share None where no compaction ran."""
 
@@ -14,13 +15,13 @@ BENCH = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
 from harness import cli, registry  # noqa: E402
+from test_bench_contract import rehearsals  # noqa: E402
 
 torch.set_num_threads(1)
 
-SCALE = {"disc25k.batch": {"n": 256},
-         "merger4m.collide": {"n": 1024, "force_backend": "bh",
-                              "bh_deep_levels": -1, "bh_levels": 3,
-                              "bh_tile_size": 8}}
+SCALE = {cell: scale for cell, scale in rehearsals().items()
+         if any(m["name"] == "enqueue_ms"
+                for m in registry.cell(cell).per_layer)}
 NUMBERS = ("enqueue_ms", "host_syncs_per_step", "sync_wait_ms")
 DEVICE = ("tree_busy_ms", "tree_idle_pct", "collision_busy_ms")
 
