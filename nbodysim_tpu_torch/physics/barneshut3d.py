@@ -51,7 +51,8 @@ Differences from the JAX package, each deliberate:
     by subtracting ~m c^2, so the pooled sums' last bits matter;
   * the residual tiers, the deep chain's row compactions and the sparse
     near field's source compaction are Python branches on a count read from
-    the device (one host sync each), where the JAX package uses `lax.cond`;
+    the device (one host sync each, `profiling.host_read`), where the JAX
+    package uses `lax.cond`;
     the sparse pass runs on its valid target rows and compacted sources
     only, where the JAX package pads both to static caps;
   * the per-tile chain runs the T tiles as one batch where the JAX package
@@ -73,9 +74,10 @@ import torch
 import torch.nn.functional as F
 
 from nbodysim_tpu_torch.config import SimConfig
+from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.physics.barneshut import (
     _DEEP_SMOOTH, NEAR_CAP, _assemble, _bounding_box, _cell_ids,
-    _compact_indices, _exact_couplings, _extract_heavy_outliers,
+    _compact_indices, _count_rows, _exact_couplings, _extract_heavy_outliers,
     _full_f32_conv, _halo_cap, _iota, _m2l_conv_taps, _near_field_buckets,
     _near_masked_blocked, _near_overflow, _outlier_flat_ids, _scatter_rows)
 
@@ -164,17 +166,19 @@ def _m2l_level3(g10, corner, size, eps_sq, radius: int):
     Even grids (every real level) run as the parent-level convolution
     (`_m2l_conv3`); the stencil is the reference and the odd-size path.
     Even grids may carry leading batch axes (the deep chain's tiles), with
-    one corner per grid."""
+    one corner per grid. Every call is the span `tree.m2l`, inside the
+    stage that makes it (`tree.downward`, `tree.deep`, `tree.tiles`)."""
     r = g10[0].shape[-1]
-    if r % 2 == 0 and r >= 2:
-        qh = radius - 1
-        gx = F.pad(torch.stack(g10, -1), (0, 0) * 3 + (2 * qh, 2 * qh))
-        return _m2l_conv3(gx, corner, size, r, eps_sq, radius, row0=0,
-                          rows=r)
-    p = 2 * radius - 1
-    window = tuple(F.pad(g, (p,) * 6) for g in g10)
-    return _m2l_stencil3(window, corner, size, r, eps_sq, radius, row0=0,
-                         rows=r)
+    with profiling.span("tree.m2l"):
+        if r % 2 == 0 and r >= 2:
+            qh = radius - 1
+            gx = F.pad(torch.stack(g10, -1), (0, 0) * 3 + (2 * qh, 2 * qh))
+            return _m2l_conv3(gx, corner, size, r, eps_sq, radius, row0=0,
+                              rows=r)
+        p = 2 * radius - 1
+        window = tuple(F.pad(g, (p,) * 6) for g in g10)
+        return _m2l_stencil3(window, corner, size, r, eps_sq, radius,
+                             row0=0, rows=r)
 
 
 def _m2l_stencil3(window, corner, size, r_full: int, eps_sq, radius: int,
@@ -893,7 +897,9 @@ def _tile_eval3(pos, payload, bulk_pos, ci_f, b_par, local_w,
     slice of the level-D locals. The scatter takes only the rows that can
     reach a selected window, and the apply only the refined targets,
     each compacted to a fixed capacity when the count fits it (a host
-    sync), else over all rows; both give the same result."""
+    sync each, `host_read`), else over all rows; both give the same
+    result. The counters `tree.rows_needed.scatter` / `.apply` and
+    `tree.rows_computed.*` keep both counts."""
     n = pos.shape[0]
     geo = (corner, size, deep, radius, k, t, T)
     s_cap = _scatter_cap3(n)
@@ -901,7 +907,9 @@ def _tile_eval3(pos, payload, bulk_pos, ci_f, b_par, local_w,
     if s_cap < n:
         sidx_s, n_src = _compact_indices(
             _tile_src_mask3(ci_f, tile_slot, deep, radius, t, T), s_cap)
-        if int(n_src) <= s_cap:
+        n_src = profiling.host_read(n_src, "scatter_rows")
+        _count_rows("scatter", n_src, s_cap, n)
+        if n_src <= s_cap:
             valid_s = sidx_s < n
             ss = torch.clamp(sidx_s, max=n - 1)
             g4k = _tile_scatter3(
@@ -916,7 +924,9 @@ def _tile_eval3(pos, payload, bulk_pos, ci_f, b_par, local_w,
     cap = _refined_cap3(n)
     if cap < n:
         sidx, n_cand = _compact_indices((tile_slot[tid] < T) & b_par, cap)
-        if int(n_cand) <= cap:
+        n_cand = profiling.host_read(n_cand, "apply_rows")
+        _count_rows("apply", n_cand, cap, n)
+        if n_cand <= cap:
             valid = sidx < n
             si = torch.clamp(sidx, max=n - 1)
             r_s, far_s, near_s = _tile_apply3(
@@ -973,22 +983,28 @@ def _sparse_near_field3(pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
     The JAX package pads both sides to those static caps; here the pass
     runs on the valid target rows and compacted sources only (zero-mass
     padding adds nothing, so only the blocks' summation order differs),
-    and not at all without a bucket-tier target. Returns (near [N, 3]
-    scaled by g_const, zero off the pass's rows; b_par with the promoted
-    rows)."""
+    and not at all without a bucket-tier target. Its two counts are host
+    reads (`sparse_targets`, `sparse_sources`), and the row counters of
+    both compactions count the rows the pass runs on: its valid targets,
+    and the compacted sources, or all N past their cap. Returns (near
+    [N, 3] scaled by g_const, zero off the pass's rows; b_par with the
+    promoted rows)."""
     n = pos.shape[0]
     cand = ~b_par & ~is_out
     cap = _nf_sparse_cap(n)
     sidx, n_cand = _compact_indices(cand, cap)
-    n_tgt = min(int(n_cand), cap)
+    n_tgt = min(profiling.host_read(n_cand, "sparse_targets"), cap)
     near = torch.zeros_like(pos)
     if n_tgt:
+        _count_rows("sparse_targets", n_tgt, n_tgt, n)
         si = sidx[:n_tgt]
         src = ~hot[flat]
         scap = _nf_sparse_src_cap(n)
         sidx_s, n_srcs = _compact_indices(src, scap)
-        n_srcs = int(n_srcs)
-        if scap < n and n_srcs <= scap:
+        n_srcs = profiling.host_read(n_srcs, "sparse_sources")
+        fits = scap < n and n_srcs <= scap
+        _count_rows("sparse_sources", n_srcs, n_srcs if fits else n, n)
+        if fits:
             ss = sidx_s[:n_srcs]
             s_pos, s_mass, s_cell = bulk_pos[ss], tree_mass[ss], ci[ss]
         else:
@@ -1008,67 +1024,73 @@ def _deep_chain3(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
     """The deep branch of `_bh3_accelerations`: continue the downward pass
     from the bucket level's locals to `deep`, and give the deep-path
     targets (b_par) the deep L2P against the ring-folded locals plus the
-    inner 3^3 smoothed aggregates, then the tile refinement. Returns the
-    overridden (far, near), scaled by g_const. Without a deep-path target
-    (no overflowing cell) nothing changes, and nothing runs (one host
-    sync)."""
+    inner 3^3 smoothed aggregates (the span `tree.deep`), then the tile
+    refinement (`tree.tiles`). Returns the overridden (far, near), scaled
+    by g_const. Without a deep-path target (no overflowing cell) nothing
+    changes, and nothing runs (one host sync, `host_read.deep_targets`)."""
     n = pos.shape[0]
-    if not bool(b_par.any()):
-        return far, near
-    for lv in range(levels + 1, deep + 1):
-        terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
-        up = _l2l_upsample3(local, size / (1 << lv))
-        local = tuple(u + t for u, t in zip(up, terms))
-    local_deep = local
+    with profiling.span("tree.deep"):
+        if not profiling.host_read(b_par.any(), "deep_targets"):
+            return far, near
+        for lv in range(levels + 1, deep + 1):
+            terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
+            up = _l2l_upsample3(local, size / (1 << lv))
+            local = tuple(u + t for u, t in zip(up, terms))
+        local_deep = local
 
-    payload = _moment_payload3(pos, tree_mass)
-    rrd = radius - 1
-    rin = min(rrd, 1)    # inner aggregate window; the shell folds into L2P
-    # The tiles must see the UN-folded local_deep: their sub-level chain
-    # re-decomposes the window the fold covers. At R = 2 the fold is a
-    # no-op: its padded 10-channel window (7 GB at 256^3) is not built.
-    local_agg = local_deep
-    if rrd >= 2:
-        local_agg = _fold_aggregate_ring3(
-            local_deep, tuple(F.pad(g, (rrd,) * 6) for g in grids[deep]),
-            corner, size, 1 << deep, eps_sq, radius, row0=0, rows=1 << deep)
-    g4_pad = F.pad(torch.stack(grids[deep][:4], -1), (0, 0) + (rin,) * 6)
-    s_d = size / (1 << deep)
+        payload = _moment_payload3(pos, tree_mass)
+        rrd = radius - 1
+        rin = min(rrd, 1)    # inner aggregate window; the shell folds in L2P
+        # The tiles must see the UN-folded local_deep: their sub-level chain
+        # re-decomposes the window the fold covers. At R = 2 the fold is a
+        # no-op: its padded 10-channel window (7 GB at 256^3) is not built.
+        local_agg = local_deep
+        if rrd >= 2:
+            local_agg = _fold_aggregate_ring3(
+                local_deep, tuple(F.pad(g, (rrd,) * 6) for g in grids[deep]),
+                corner, size, 1 << deep, eps_sq, radius, row0=0,
+                rows=1 << deep)
+        g4_pad = F.pad(torch.stack(grids[deep][:4], -1), (0, 0) + (rin,) * 6)
+        s_d = size / (1 << deep)
 
-    def deep_rows(pos_r, ci_r, pay_r):
-        far_r = g_const * _l2p_eval3(local_agg, ci_r, pos_r, corner, size,
-                                     deep)
-        near_r = g_const * _deep_near_aggregates3(pos_r, pay_r, g4_pad, ci_r,
-                                                  eps_sq, s_d, rr=rin)
-        return far_r, near_r
+        def deep_rows(pos_r, ci_r, pay_r):
+            far_r = g_const * _l2p_eval3(local_agg, ci_r, pos_r, corner, size,
+                                         deep)
+            near_r = g_const * _deep_near_aggregates3(
+                pos_r, pay_r, g4_pad, ci_r, eps_sq, s_d, rr=rin)
+            return far_r, near_r
 
-    rows_d = None
-    dcap = _deep_rows_cap3(n)
-    if tile_levels and dcap < n:
-        # Rows the tiles refine discard the deep rows' output, so only
-        # b_par & ~refined rows run them (refined equals this cand).
-        tid_d, tile_slot_d, _ = _tile_select3(ci_f, b_par, deep, tile_size,
-                                              tile_count, radius)
-        cand = (tile_slot_d[tid_d] < tile_count) & b_par
-        sidx, n_need = _compact_indices(b_par & ~cand, dcap)
-        if int(n_need) <= dcap:
-            valid = sidx < n
-            sd = torch.clamp(sidx, max=n - 1)
-            rows_d = _scatter_rows(n, torch.where(valid, sd, n),
-                                   *deep_rows(pos[sd], ci_f[sd],
-                                              payload[sd, :4]))
-    if rows_d is None:
-        rows_d = deep_rows(pos, ci_f, payload[:, :4])
-    far = torch.where(b_par[:, None], rows_d[0], far)
-    near = torch.where(b_par[:, None], rows_d[1], near)
+        rows_d = None
+        dcap = _deep_rows_cap3(n)
+        if tile_levels and dcap < n:
+            # Rows the tiles refine discard the deep rows' output, so only
+            # b_par & ~refined rows run them (refined equals this cand).
+            tid_d, tile_slot_d, _ = _tile_select3(
+                ci_f, b_par, deep, tile_size, tile_count, radius)
+            cand = (tile_slot_d[tid_d] < tile_count) & b_par
+            sidx, n_need = _compact_indices(b_par & ~cand, dcap)
+            n_need = profiling.host_read(n_need, "deep_rows")
+            _count_rows("deep", n_need, dcap, n)
+            if n_need <= dcap:
+                valid = sidx < n
+                sd = torch.clamp(sidx, max=n - 1)
+                rows_d = _scatter_rows(n, torch.where(valid, sd, n),
+                                       *deep_rows(pos[sd], ci_f[sd],
+                                                  payload[sd, :4]))
+        if rows_d is None:
+            rows_d = deep_rows(pos, ci_f, payload[:, :4])
+        far = torch.where(b_par[:, None], rows_d[0], far)
+        near = torch.where(b_par[:, None], rows_d[1], near)
 
     if tile_levels:
-        refined, far_ref, near_ref = _tile_refine3(
-            pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
-            deep, radius, eps_sq, k=tile_levels, t=tile_size, T=tile_count)
-        sel = refined[:, None]
-        far = torch.where(sel, g_const * far_ref, far)
-        near = torch.where(sel, g_const * near_ref, near)
+        with profiling.span("tree.tiles"):
+            refined, far_ref, near_ref = _tile_refine3(
+                pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
+                deep, radius, eps_sq, k=tile_levels, t=tile_size,
+                T=tile_count)
+            sel = refined[:, None]
+            far = torch.where(sel, g_const * far_ref, far)
+            near = torch.where(sel, g_const * near_ref, near)
     return far, near
 
 
@@ -1084,55 +1106,61 @@ def _bh3_accelerations(pos, mass, levels: int, eps_sq: float,
     versions on any device. deep_levels > levels turns on the deep-overflow
     chain (`_deep_chain3`), tile_levels > 0 its hot-zone tiles, and
     nf_sparse (with the deep chain) the sparse near field in place of the
-    bucket grid and K7."""
-    ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
-        pos, mass, eps_sq, g_const, use_kernels)
+    bucket grid and K7.
+
+    Its stages are the 2D tree's spans: `tree.couplings`, `tree.pyramid`,
+    `tree.downward`, `tree.near` (with the deep path's targets and the
+    sparse near field), `tree.deep`, `tree.tiles` and `tree.assemble`;
+    each M2L level is `tree.m2l` inside its stage."""
+    with profiling.span("tree.couplings"):
+        ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
+            pos, mass, eps_sq, g_const, use_kernels)
 
     tree_mass = ext["tree_mass"]          # the tree sees only the bulk
     bulk_pos = ext["bulk_pos"]
     deep = deep_levels if deep_levels > levels else 0
-    grids, corner, size, ci_f, flat_f = _build_pyramid3(
-        bulk_pos, tree_mass, deep or levels, synth_quad=bool(deep))
     res = 1 << levels
-    if deep:
-        ci = ci_f >> (deep - levels)           # bucket-level cell indices
-        flat = (ci[:, 0] * res + ci[:, 1]) * res + ci[:, 2]
-    else:
-        ci, flat = ci_f, flat_f
+    with profiling.span("tree.pyramid"):
+        grids, corner, size, ci_f, flat_f = _build_pyramid3(
+            bulk_pos, tree_mass, deep or levels, synth_quad=bool(deep))
+        if deep:
+            ci = ci_f >> (deep - levels)           # bucket-level cell indices
+            flat = (ci[:, 0] * res + ci[:, 1]) * res + ci[:, 2]
+        else:
+            ci, flat = ci_f, flat_f
 
     # Downward pass: M2L at each level + L2L to the next.
-    local = None
-    for lv in range(2, levels + 1):
-        terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
-        if local is None:
-            local = terms
+    with profiling.span("tree.downward"):
+        local = None
+        for lv in range(2, levels + 1):
+            terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
+            if local is None:
+                local = terms
+            else:
+                up = _l2l_upsample3(local, size / (1 << lv))
+                local = tuple(u + t for u, t in zip(up, terms))
+        far = g_const * _l2p_eval3(local, ci, pos, corner, size, levels)
+    with profiling.span("tree.near"):
+        flat_nf = _outlier_flat_ids(flat, ext["is_out"], res ** 3)
+        if deep:
+            b_par, hot = _deep_targets3(flat_nf, flat, ext["is_out"], res,
+                                        near_cap, radius)
+        if deep and nf_sparse:
+            near, b_par = _sparse_near_field3(
+                pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
+                ext["is_out"], eps_sq, g_const, radius)
         else:
-            up = _l2l_upsample3(local, size / (1 << lv))
-            local = tuple(u + t for u, t in zip(up, terms))
-
-    far = g_const * _l2p_eval3(local, ci, pos, corner, size, levels)
-    flat_nf = _outlier_flat_ids(flat, ext["is_out"], res ** 3)
-    if not deep:
-        near, _ = _near_field_buckets(
-            pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
-            radius, use_kernels=use_kernels)
+            near, _ = _near_field_buckets(
+                pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const,
+                near_cap, radius, use_kernels=use_kernels,
+                skip_residual=bool(deep))
+    if deep:
+        far, near = _deep_chain3(
+            pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f, b_par,
+            far, near, levels, deep, eps_sq, g_const, radius, tile_levels,
+            tile_size, tile_count)
+    with profiling.span("tree.assemble"):
         return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
-
-    b_par, hot = _deep_targets3(flat_nf, flat, ext["is_out"], res, near_cap,
-                                radius)
-    if nf_sparse:
-        near, b_par = _sparse_near_field3(
-            pos, bulk_pos, tree_mass, ci, flat, hot, b_par, ext["is_out"],
-            eps_sq, g_const, radius)
-    else:
-        near, _ = _near_field_buckets(
-            pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
-            radius, use_kernels=use_kernels, skip_residual=True)
-    far, near = _deep_chain3(
-        pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f, b_par,
-        far, near, levels, deep, eps_sq, g_const, radius, tile_levels,
-        tile_size, tile_count)
-    return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
 
 
 def _resolve_levels3(config: SimConfig, n: int) -> int:

@@ -2,16 +2,20 @@
 (`nbodysim_tpu_torch.diagnostics.profiling`: `span`, `host_read`, `count`,
 `recording`).
 
-On the CPU: nothing is kept while nothing records; a 2D deep-chain merger
-step (the three row compactions forced on at N = 2048 by smaller caps, the
-block collision pass) gives bit-identical states with recording on and off;
+On the CPU, for each tree (`TREES`: a 2D deep-chain merger step with the
+block collision pass, and a 3D Plummer-sphere step of the octree's deep
+chain with its sparse near field, each at N = 2048 with its row
+compactions forced on by smaller caps): nothing is kept while nothing
+records; the step gives bit-identical states with recording on and off;
 its row counters equal counts taken from the compactions' own masks;
 `host_syncs` equals the `host_read` calls; the spans nest step > forces >
-tree.* and step > collisions > collide.*; `trace()`'s Chrome trace holds
-them beside the aten ops.
+tree.* (the octree's `tree.m2l` inside `tree.downward`, `tree.deep` and
+`tree.tiles`) and step > collisions > collide.*; `trace()`'s Chrome trace
+holds them beside the aten ops.
 
 On the card (marked `cuda`, skipped without one): over one step of a 2D
-deep-chain merger, `host_syncs` equals the syncs that
+deep-chain merger, and of a 3D Plummer sphere whose buckets overflow (the
+octree's deep chain, K7), `host_syncs` equals the syncs that
 `torch.cuda.set_sync_debug_mode("warn")` reports less the uncounted
 host-to-device copies of host constants, recording adds no sync, and the
 states are bit-identical with recording on and off; `Simulation.run(10)`
@@ -36,12 +40,11 @@ from nbodysim_tpu_torch.app.viewer import Viewer
 from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.allpairs import allpairs_potential
 from nbodysim_tpu_torch.physics import barneshut as bh
+from nbodysim_tpu_torch.physics import barneshut3d as bh3
 from nbodysim_tpu_torch.render.splat import RenderConfig
 
 CPU = torch.device("cpu")
 FIELDS = ("pos", "vel", "acc", "mass", "radius", "frame")
-# The three compactions in the order a deep-chain step runs them.
-COMPACTIONS = ("deep", "scatter", "apply")
 # Host-to-device copies of host constants: syncs no counter holds (the M2L
 # tap tables, the outlier flags' True, the block pass's cell floor and
 # window offsets).
@@ -63,6 +66,87 @@ def _merger(n: int, device, **kw) -> nt.Simulation:
             "galaxy_merger", cfg, device=device), device=device)
 
 
+def _plummer(n: int, device, **kw) -> nt.Simulation:
+    """BASELINE config 2's physics (leapfrog, dt 0.5, softening 10,
+    collisions, boundary and clamp off) on the octree's deep chain."""
+    cfg = nt.SimConfig(**{**dict(
+        n=n, dim=3, integrator="leapfrog_kdk", dt=0.5, softening=10.0,
+        enable_collisions=False, enable_boundary=False,
+        enable_velocity_clamp=False, force_backend="bh", bh_deep_levels=-1),
+        **kw})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return nt.Simulation(cfg, state=nt.init_scene(
+            "plummer", cfg, virialize=False, device=device), device=device)
+
+
+# Each tree's CPU step: the module whose compactions are spied on, its caps
+# cut so that the deep rows fit their compaction and the tile scatter and
+# apply do not, the compactions in the order the step runs them, the reads
+# of a device count, the collision pass's stage spans, the `tree.m2l` spans
+# each parent stage holds, and the parent stage of each read.
+TREES = {
+    "merger2d": dict(
+        module=bh,
+        caps={"_deep_rows_cap": lambda n: n // 2,
+              "_scatter_cap": lambda n: n // 2,
+              "_refined_cap": lambda n: n // 8},
+        sim=lambda: _merger(2048, CPU, bh_levels=4, bh_deep_levels=6,
+                            bh_tile_levels=2, bh_tile_size=8,
+                            bh_tile_count=4),
+        compactions=("deep", "scatter", "apply"),
+        fits=[True, False, False],
+        # The deep rows, the tile scatter, the tile apply, the block pass's
+        # residual branch.
+        reads=["apply_rows", "collide_overflow", "deep_rows",
+               "scatter_rows"],
+        collide=["collide.structure", "collide.planes", "collide.block",
+                 "collide.corrections"],
+        m2l={},
+        read_in={"deep_rows": "tree.deep", "scatter_rows": "tree.tiles",
+                 "apply_rows": "tree.tiles",
+                 "collide_overflow": "collide.corrections"}),
+    "plummer3d": dict(
+        module=bh3,
+        caps={"_deep_rows_cap3": lambda n: (3 * n) // 4,
+              "_scatter_cap3": lambda n: n // 2,
+              "_refined_cap3": lambda n: n // 8},
+        sim=lambda: _plummer(2048, CPU, bh_levels=3, bh_deep_levels=5,
+                             bh_tile_levels=2, bh_tile_size=4,
+                             bh_tile_count=4, bh_nf_sparse=1),
+        compactions=("sparse_targets", "sparse_sources", "deep", "scatter",
+                     "apply"),
+        # The sparse sources' count fits their cap, but the cap is N at
+        # this size: they take all rows.
+        fits=[True, True, True, False, False],
+        # The sparse near field's targets and sources, whether any target
+        # takes the deep path, the deep rows, the tile scatter and apply.
+        reads=["apply_rows", "deep_rows", "deep_targets", "scatter_rows",
+               "sparse_sources", "sparse_targets"],
+        collide=[],
+        # Levels 2-3, deep levels 4-5, tile sub-levels 1-2.
+        m2l={"tree.downward": 2, "tree.deep": 2, "tree.tiles": 2},
+        read_in={"sparse_targets": "tree.near", "sparse_sources": "tree.near",
+                 "deep_targets": "tree.deep", "deep_rows": "tree.deep",
+                 "scatter_rows": "tree.tiles", "apply_rows": "tree.tiles"}),
+}
+STAGES = ["tree.couplings", "tree.pyramid", "tree.downward", "tree.near",
+          "tree.deep", "tree.tiles", "tree.assemble"]
+
+
+def _expected_rows(what: str, need: int, cap: int, n: int):
+    """(needed, computed) of a compaction whose mask counts `need` rows
+    under capacity `cap`: a compaction computes its capacity where the
+    count fits, else all n; the sparse near field runs on its valid
+    targets alone (the rest promote to the deep path) and on its
+    compacted sources, or on all n where they do not fit below n."""
+    if what == "sparse_targets":
+        return min(need, cap), min(need, cap)
+    if what == "sparse_sources":
+        return need, need if need <= cap < n else n
+    return need, cap if need <= cap else n
+
+
 def _step_from(sim, state, record: bool):
     """One step of `sim` from `state`; (state after, recorder or None)."""
     sim.state = state
@@ -78,23 +162,22 @@ def _assert_same_state(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
-@pytest.fixture(scope="module")
-def merger_step():
-    """The N = 2048 deep-chain merger, one step from the same state with
-    recording off and on; the caps are cut so that the deep rows fit their
-    compaction and the tile scatter and apply do not. Returns the states,
-    the recorder, the masks' counts and caps, and the host_read calls."""
+@pytest.fixture(scope="module", params=sorted(TREES))
+def tree_step(request):
+    """One step of a tree's N = 2048 case (`TREES`) from the same state
+    with recording off and on. Returns the case, the states, the recorder,
+    the compactions' mask counts and caps, and the host_read calls."""
+    case = TREES[request.param]
+    mod = case["module"]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(bh, "_deep_rows_cap", lambda n: n // 2)
-        mp.setattr(bh, "_scatter_cap", lambda n: n // 2)
-        mp.setattr(bh, "_refined_cap", lambda n: n // 8)
-        sim = _merger(2048, CPU, bh_levels=4, bh_deep_levels=6,
-                      bh_tile_levels=2, bh_tile_size=8, bh_tile_count=4)
+        for name, cap in case["caps"].items():
+            mp.setattr(mod, name, cap)
+        sim = case["sim"]()
         state0 = sim.state
         off, _ = _step_from(sim, state0, record=False)
 
         masks, reads = [], []
-        compact, read = bh._compact_indices, profiling.host_read
+        compact, read = mod._compact_indices, profiling.host_read
 
         def spy_compact(mask, cap):
             masks.append((int(mask.sum()), cap))
@@ -104,10 +187,11 @@ def merger_step():
             reads.append(what)
             return read(t, what)
 
-        mp.setattr(bh, "_compact_indices", spy_compact)
+        mp.setattr(mod, "_compact_indices", spy_compact)
         mp.setattr(profiling, "host_read", spy_read)
         on, rec = _step_from(sim, state0, record=True)
-    return dict(off=off, on=on, rec=rec, masks=masks, reads=reads)
+    return dict(case=case, off=off, on=on, rec=rec, masks=masks,
+                reads=reads)
 
 
 def test_nothing_recording_keeps_no_span():
@@ -128,58 +212,59 @@ def test_nothing_recording_keeps_no_span():
     assert profiling._recorder is None
 
 
-def test_recording_leaves_the_merger_step_bit_identical(merger_step):
-    _assert_same_state(merger_step["off"], merger_step["on"])
+def test_recording_leaves_the_merger_step_bit_identical(tree_step):
+    _assert_same_state(tree_step["off"], tree_step["on"])
 
 
-def test_row_counters_equal_the_masks(merger_step):
-    """Each compaction's needed rows are its mask's count; it computes its
-    capacity where the count fits, else all N. The caps make the deep rows
+def test_row_counters_equal_the_masks(tree_step):
+    """Each compaction's needed and computed rows follow from its mask's
+    count and its capacity (`_expected_rows`). The caps make the deep rows
     fit and the tile scatter and apply run over every row."""
     n = 2048
-    cnt = merger_step["rec"].counters
-    assert len(merger_step["masks"]) == len(COMPACTIONS)
+    case = tree_step["case"]
+    cnt = tree_step["rec"].counters
+    assert len(tree_step["masks"]) == len(case["compactions"])
     fits = []
-    for what, (need, cap) in zip(COMPACTIONS, merger_step["masks"]):
+    for what, (need, cap) in zip(case["compactions"], tree_step["masks"]):
         assert need > 0
-        assert cnt[f"tree.rows_needed.{what}"] == need
-        assert cnt[f"tree.rows_computed.{what}"] == (cap if need <= cap
-                                                     else n)
+        needed, computed = _expected_rows(what, need, cap, n)
+        assert cnt[f"tree.rows_needed.{what}"] == needed, what
+        assert cnt[f"tree.rows_computed.{what}"] == computed, what
         fits.append(need <= cap)
-    assert fits == [True, False, False]
+    assert fits == case["fits"]
 
 
-def test_host_syncs_count_the_host_reads(merger_step):
-    reads = merger_step["reads"]
-    # The deep rows, the tile scatter, the tile apply, the block pass's
-    # residual branch: the step's four reads of a device count.
-    assert sorted(reads) == ["apply_rows", "collide_overflow", "deep_rows",
-                             "scatter_rows"]
-    rec = merger_step["rec"]
+def test_host_syncs_count_the_host_reads(tree_step):
+    reads = tree_step["reads"]
+    assert sorted(reads) == tree_step["case"]["reads"]
+    rec = tree_step["rec"]
     assert rec.counters["host_syncs"] == len(reads)
     assert [s.name for s in rec.select("host_read.")] == [
         f"host_read.{r}" for r in reads]
 
 
-def test_spans_nest(merger_step):
-    rec = merger_step["rec"]
+def test_spans_nest(tree_step):
+    case = tree_step["case"]
+    rec = tree_step["rec"]
     names = [s.name for s in rec.spans]
-    parent = {s.name: (rec.spans[s.parent].name if s.parent is not None
-                       else None) for s in rec.spans}
+    parents = [rec.spans[s.parent].name if s.parent is not None else None
+               for s in rec.spans]
+    parent = dict(zip(names, parents))
     assert parent["step"] is None
-    assert parent["forces"] == parent["collisions"] == "step"
-    tree = ["tree.couplings", "tree.pyramid", "tree.downward", "tree.near",
-            "tree.deep", "tree.tiles", "tree.assemble"]
-    collide = ["collide.structure", "collide.planes", "collide.block",
-               "collide.corrections"]
-    assert [x for x in names if x.startswith("tree.")] == tree
-    assert [x for x in names if x.startswith("collide.")] == collide
-    assert all(parent[x] == "forces" for x in tree)
-    assert all(parent[x] == "collisions" for x in collide)
-    assert parent["host_read.deep_rows"] == "tree.deep"
-    assert parent["host_read.scatter_rows"] == "tree.tiles"
-    assert parent["host_read.apply_rows"] == "tree.tiles"
-    assert parent["host_read.collide_overflow"] == "collide.corrections"
+    assert parent["forces"] == "step"
+    assert [x for x in names if x.startswith("tree.")
+            and x != "tree.m2l"] == STAGES
+    assert [x for x in names if x.startswith("collide.")] == case["collide"]
+    assert all(parent[x] == "forces" for x in STAGES)
+    if case["collide"]:
+        assert parent["collisions"] == "step"
+        assert all(parent[x] == "collisions" for x in case["collide"])
+    else:
+        assert "collisions" not in names
+    assert Counter(p for x, p in zip(names, parents)
+                   if x == "tree.m2l") == Counter(case["m2l"])
+    for what, stage in case["read_in"].items():
+        assert parent[f"host_read.{what}"] == stage, what
     assert rec.under(names.index("tree.tiles"), "step")
     for i, s in enumerate(rec.spans):
         if s.parent is not None:
@@ -188,7 +273,7 @@ def test_spans_nest(merger_step):
     summary = rec.summary()
     assert list(summary)[:2] == ["step", "forces"]
     assert summary["step"]["calls"] == 1
-    assert rec.host_ms("tree.") <= rec.host_ms("forces") \
+    assert sum(rec.host_ms(x) for x in STAGES) <= rec.host_ms("forces") \
         <= rec.host_ms("step")
 
 
@@ -270,13 +355,10 @@ def _syncs(fn):
     return sites, out
 
 
-@pytest.mark.cuda
-def test_card_merger_syncs_are_the_host_reads(dev):
-    """One step of the N = 131,072 deep-chain merger (its compactions at
-    their own caps, the block pass): the syncs in `host_read` are
-    `host_syncs`, every other sync is an uncounted copy of a host
-    constant, and recording adds none."""
-    sim = _merger(131_072, dev)
+def _check_syncs_are_the_host_reads(sim):
+    """One step of `sim`: the syncs in `host_read` are `host_syncs`, every
+    other sync is an uncounted copy of a host constant, and recording adds
+    none. Returns the recorder."""
     sim.run(1)
     state0 = sim.state
     off, _ = _syncs(lambda: _step_from(sim, state0, record=False))
@@ -287,13 +369,12 @@ def test_card_merger_syncs_are_the_host_reads(dev):
     rest = [s for s in on if s[0] != "profiling.py"]
     assert all(any(u in line for u in UNCOUNTED) for _, line in rest), rest
     assert rec.counters["tree.rows_computed.deep"] > 0
+    return rec
 
 
-@pytest.mark.cuda
-def test_card_merger_step_bit_identical(dev):
+def _check_step_bit_identical(sim):
     """With index_add_ deterministic, recording changes no bit of the
     step."""
-    sim = _merger(131_072, dev)
     sim.run(1)
     state0 = sim.state
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -304,6 +385,35 @@ def test_card_merger_step_bit_identical(dev):
         torch.use_deterministic_algorithms(False)
     _assert_same_state(off, on)
     assert rec.device_ms("forces") > 0
+
+
+@pytest.mark.cuda
+def test_card_merger_syncs_are_the_host_reads(dev):
+    """One step of the N = 131,072 deep-chain merger (its compactions at
+    their own caps, the block pass)."""
+    _check_syncs_are_the_host_reads(_merger(131_072, dev))
+
+
+@pytest.mark.cuda
+def test_card_plummer_syncs_are_the_host_reads(dev):
+    """One step of the N = 131,072 Plummer sphere under config 2's physics
+    (the octree's deep chain at its own caps, K7): whether any target takes
+    the deep path, the deep rows, the tile scatter and apply."""
+    rec = _check_syncs_are_the_host_reads(_plummer(131_072, dev))
+    assert {s.name for s in rec.select("host_read.")} == {
+        "host_read.deep_targets", "host_read.deep_rows",
+        "host_read.scatter_rows", "host_read.apply_rows"}
+    assert {s.name for s in rec.select("tree.m2l", under="tree.deep")}
+
+
+@pytest.mark.cuda
+def test_card_merger_step_bit_identical(dev):
+    _check_step_bit_identical(_merger(131_072, dev))
+
+
+@pytest.mark.cuda
+def test_card_plummer_step_bit_identical(dev):
+    _check_step_bit_identical(_plummer(131_072, dev))
 
 
 @pytest.mark.cuda
