@@ -112,11 +112,16 @@ Phases, each printing its own lines:
                 with deterministic index_add_, vs exact K1 on 4096 rows with
                 the JAX tests' 3D bounds: median < 3e-2 off the deep path,
                 max|a| < 10x on it), 1 warm-up step, then run(3) with K1, K4
-                and K7 once per step; K1, K4 and K7 at its shapes against
-                their plain versions, timed and bounded. The 3D galaxy
-                merger at N=1M under 'auto' (the sparse near field, its
-                valid rows and sources printed): the same report, run(3)
-                with K1 and K4 once per step and no K7. The clustered blob
+                and K7 once per step and the M2L kernel once a level; K1, K4
+                and K7 at its shapes against their plain versions, timed and
+                bounded; the M2L kernel at its 256^3 and 128^3 levels
+                against its plain version (each term within 1e-5 of its
+                max |value|), timed beside its bound (useful multiply-adds
+                at 67 TFLOP/s) and the plain route (cuDNN, library_ms).
+                The 3D galaxy merger at N=1M under 'auto' (the sparse near
+                field, its valid rows and sources printed): the same report,
+                run(3) with K1 and K4 once per step, no K7, the M2L kernel
+                once a level. The clustered blob
                 (scripts/bench3d_clustered.py's input, `scenes/blob.py`):
                 its resolution and one timed eval.
  12. surface  — the product surface through its entry points: `cli info`
@@ -1273,6 +1278,7 @@ def main() -> None:
     from nbodysim_tpu_torch.kernels.collide import (
         allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
         rect_pair_deltas_plain)
+    from nbodysim_tpu_torch.kernels import m2l3 as km3
     from nbodysim_tpu_torch.kernels.collide_block import (
         block_collision_deltas, block_collision_deltas_plain,
         block_collision_walks, k6_needed_pairs)
@@ -3174,6 +3180,35 @@ def main() -> None:
     # clustered blob, the sparse near field on the 3D galaxy merger.
     t_phase11 = time.perf_counter()
     n_p = 1 << 20
+    m2l3_rows = {}
+
+    def m2l3_level(label, g10, corner, size, rad, v):
+        """The M2L kernel at level v of the eval's pyramid: against its
+        plain version (each term within 1e-5 of its max |value|), timed,
+        bounded by its useful multiply-adds (r^3 x the V-list's sources x
+        130) and its bytes (10 channels in, 19 terms out), beside the plain
+        route (cuDNN in full f32) as the library's time."""
+        r = 1 << v
+        args = (bh3._channel_stack3(g10), corner, size, r, eps, rad)
+        kw = dict(row0=0, rows=r, x0=0)
+        got = km3.m2l3(*args, **kw)
+        ref = km3.m2l3_plain(*args, **kw)
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(got, ref))
+        del got, ref
+        ms = time_ms(lambda: km3.m2l3(*args, **kw), 5)
+        lib_ms = time_ms(lambda: km3.m2l3_plain(*args, **kw), 2)
+        sources = len(bh._m2l_conv_taps(rad, rad, 3)[0]) // 8
+        fma = float(r) ** 3 * sources * 130
+        bnd = bound(4.0 * r ** 3 * (10 + 19), 2.0 * fma)
+        say("deep3d", f"M2L kernel, {label} level {v} ({r}^3, R={rad}): "
+            f"worst term error {worst:.3e} of its max (tol 1e-5); kernel "
+            f"{ms:.4f} ms, {fma / ms / 1e9:.4e} useful FMA/s, "
+            f"{100 * bnd[0] / ms:.1f}% of its bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}); plain route (cuDNN, full f32) {lib_ms:.4f} ms")
+        require(worst <= 1e-5, f"M2L kernel at {r}^3 disagrees with its "
+                f"plain version: {worst:.3e}")
+        return worst, ms, lib_ms, bnd
 
     def deep3_scene(label, sim, sparse):
         """Resolution, shares, one eval timed whole and by stage (device busy
@@ -3378,6 +3413,10 @@ def main() -> None:
         say("deep3d", f"  {label} stages sum to {sum(stages.values()):.4f} ms "
             f"against the eval's {ev_ms:.4f}")
         if not sparse:
+            for v in (dp, dp - 1):
+                m2l3_rows[v] = m2l3_level(label, grids[v], corner, size,
+                                          rad, v)
+        if not sparse:
             # Not on this path: the sparse near field on these inputs, the
             # plain cell-masked pairwise pass at its 16384-target cap.
             n_tgt_nf = min(n_cand, bh3._nf_sparse_cap(n_p))
@@ -3490,10 +3529,10 @@ def main() -> None:
         del a_k, exact, terms, lbucket, chain, g4k, grids, bk
         return errs, kern
 
-    def deep3_run(label, sim, k7_per_step):
+    def deep3_run(label, sim, k7_per_step, m2l_per_step):
         sim.run(1)
         torch.cuda.synchronize()
-        for c in counted + (bucket_stencil3,):
+        for c in counted + (bucket_stencil3, km3.m2l3):
             c.launches = 0
         start.record()
         sim.run(3)
@@ -3503,13 +3542,16 @@ def main() -> None:
                "K4": allpairs_accelerations_wide.launches,
                "K7": bucket_stencil3.launches,
                "K5": rect_pair_deltas.launches,
-               "K6": block_collision_deltas.launches}
+               "K6": block_collision_deltas.launches,
+               "M2L": km3.m2l3.launches}
         sps = 3 / (start.elapsed_time(end) / 1e3)
         say("deep3d", f"launches during run(3) of the {label}: {got}; "
             f"{sps:.4f} steps/s (CUDA events, after 1 warm-up step)")
-        require(got["K1"] == got["K4"] == 3 and got["K7"] == 3 * k7_per_step,
+        require(got["K1"] == got["K4"] == 3 and got["K7"] == 3 * k7_per_step
+                and got["M2L"] == 3 * m2l_per_step,
                 f"{label} kernel launches {got}: expected K1 and K4 once per "
-                f"step, K7 {k7_per_step} per step")
+                f"step, K7 {k7_per_step} and the M2L kernel {m2l_per_step} "
+                f"per step")
         require(sim.frame == 4, f"frame {sim.frame}, expected 4")
         for name in ("pos", "vel", "acc"):
             require(bool(torch.isfinite(getattr(sim.state, name)).all()),
@@ -3524,7 +3566,8 @@ def main() -> None:
             "the N=1M Plummer sphere resolved without the deep-overflow "
             "warning")
     pl_errs, deep3_k = deep3_scene("Plummer sphere", psim, sparse=False)
-    pl_launches = deep3_run("Plummer sphere", psim, 1)
+    # M2L levels a step: 2-6, deep 7-8, the tiles' 3 sub-levels.
+    pl_launches = deep3_run("Plummer sphere", psim, 1, 10)
     del psim
 
     # The 3D galaxy merger: the sparse near field, no K7.
@@ -3534,7 +3577,7 @@ def main() -> None:
     require(any("deep-overflow" in str(w.message) for w in caught),
             "the N=1M 3D merger resolved without the deep-overflow warning")
     deep3_scene("3D merger", msim3, sparse=True)
-    deep3_run("3D merger", msim3, 0)
+    deep3_run("3D merger", msim3, 0, 10)
     del msim3
 
     # The clustered blob (scripts/bench3d_clustered.py's input), one eval:
@@ -3913,6 +3956,18 @@ def main() -> None:
               "nbodysim_tpu/kernels/nearfield.py:262", pl_launches["K7"],
               pl_errs["K7"], *deep3_k["K7"][:2], deep3_k["K7"][2:]),
     ]
+    for v, (worst, ms, lib_ms, bnd) in sorted(m2l3_rows.items(),
+                                               reverse=True):
+        row = entry(
+            f"M2L m2l3 (3D deep chain, N=1M Plummer sphere: level {v}, "
+            f"{1 << v}^3; launches: all levels of 3 steps; plain_ms and "
+            f"library_ms: the plain route, cuDNN in full f32)",
+            "nbodysim_tpu_torch/csrc/m2l3.cu",
+            "none (the port adds it; nbodysim_tpu/physics/barneshut3d.py:"
+            "_m2l_conv3 leaves the M2L to XLA's conv_general_dilated)",
+            pl_launches["M2L"], worst, ms, lib_ms, bnd)
+        row["library_ms"] = lib_ms
+        kernels.append(row)
     for dim, (k5_launched, k5, _, vmax) in hash_k5.items():
         kernels.append(entry(
             f"K5 rect_pair_deltas (hash pass, {dim}D N=1M merger, every "

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
+_ll = ctypes.c_longlong
 # Every pointer and the stream are c_void_p: left undeclared, ctypes would
 # pass them as 32-bit ints and cut the address.
 SIGNATURES = {
@@ -69,6 +70,12 @@ SIGNATURES = {
                            _i, _i, _f, _vp),
     # dim, shape[3] (host memory)
     "nb_nearfield_tile": (_i, _vp),
+    # g, its strides (batch, x, y, z, channel), batch, X, x0, r, row0, rows,
+    # corner, size, eps_sq, radius, wtab, out, stream
+    "nb_m2l3": (_vp, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _i, _i, _vp,
+                _vp, _f, _i, _vp, _vp, _vp),
+    # radius
+    "nb_m2l3_table_floats": (_i,),
 }
 
 

@@ -3,12 +3,12 @@ of `nbodysim_tpu.parallel.tree3d`).
 
 The 3D instance of `parallel/tree.py`, whose docstring gives the design:
 every pyramid level's x-slabs are banded over the 1-D mesh; each rank runs
-the M2L convolution and the near field (K7) on its own band, the halo slabs
-move between ring neighbours (`comm.ppermute`, one exchange a level), and
-the coarse levels that cannot band are all-gathered and computed
-replicated. The cell sort, the bucket scatter, the near field and the L2P
-run over a compacted per-band window set, the whole set sorted where the
-window overfills it (a host branch on one count).
+the M2L (`kernels/m2l3.py`) and the near field (K7) on its own band, the
+halo slabs move between ring neighbours (`comm.ppermute`, one exchange a
+level), and the coarse levels that cannot band are all-gathered and
+computed replicated. The cell sort, the bucket scatter, the near field and
+the L2P run over a compacted per-band window set, the whole set sorted
+where the window overfills it (a host branch on one count).
 
 Decomposition of `physics/barneshut3d._bh3_accelerations` across the mesh:
 
@@ -43,6 +43,7 @@ from nbodysim_tpu_torch.core.blocking import sorted_first_occurrence
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
+from nbodysim_tpu_torch.kernels.m2l3 import m2l3
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil3, bucket_stencil3_plain)
 from nbodysim_tpu_torch.parallel import comm
@@ -65,7 +66,6 @@ from nbodysim_tpu_torch.physics.barneshut3d import (
     _deep_targets3,
     _fold_aggregate_ring3,
     _l2l_upsample3,
-    _m2l_conv3,
     _m2l_level3,
     _moment_payload3,
     _pool2x3,
@@ -150,7 +150,7 @@ def _banded_eval3(pos, mass, pos_l, *, levels, radius, eps_sq, g_const,
     res = 1 << levels
     rb = res // p_dev              # bucket-level band slabs
     p = 2 * radius - 1             # M2L halo slabs
-    qh = radius - 1                # the convolution's halo: 2 qh slabs
+    qh = radius - 1                # the M2L's halo: 2 qh slabs
     rr = radius - 1                # near-field halo slabs
     row0 = my * rb
     # The deep chain bands like the bucket levels.
@@ -226,11 +226,11 @@ def _banded_eval3(pos, mass, pos_l, *, levels, radius, eps_sq, g_const,
     for lv in range(ls, build_levels + 1):       # banded levels
         r_l = 1 << lv
         rb_l = r_l // p_dev                      # a power of two >= p >= 3
-        # The convolution form (`_m2l_level3`'s) on my slabs with 2 qh halo
-        # slabs a side; rb_l is even, as the parent-level view needs.
+        # `_m2l_level3`'s M2L on my slabs with 2 qh halo slabs a side; rb_l
+        # is even, as the parent-level view needs.
         gx = _halo_window3(band[lv], 2 * qh, axis, faces=0)
-        terms = _m2l_conv3(gx, corner, size, r_l, eps_sq, radius,
-                           row0=my * rb_l, rows=rb_l)
+        terms = m2l3(gx, corner, size, r_l, eps_sq, radius, row0=my * rb_l,
+                     rows=rb_l, x0=my * rb_l - 2 * qh)
         if local is None:                        # ls == 2: no coarse prefix
             local = terms
         elif lv == ls:

@@ -8,10 +8,13 @@ docstring gives the design and the derivative formulas:
                  (m, m r_i, m r_i r_j) into the finest 2^L x 2^L x 2^L grid,
                  2 x 2 x 2 sum-pooling up the pyramid.
   M2L:           per level, the V-list (Chebyshev distance R..2R-1, parity-
-                 gated on the outer ring) as ONE parent-level convolution
-                 (`_m2l_conv3`, `F.conv3d`, 80 -> 152 channels) into p=2
-                 local terms: F [3], J [6 sym], H [10 sym];
-                 `_m2l_stencil3` is its plain reference.
+                 gated on the outer ring) into p=2 local terms: F [3],
+                 J [6 sym], H [10 sym]: on the card one launch of the M2L
+                 kernel (`kernels/m2l3.py`, `csrc/m2l3.cu`) on the moment
+                 grids as they lie; on the CPU its plain version, ONE
+                 parent-level convolution (`kernels/m2l3._m2l_conv3`,
+                 `F.conv3d`, 80 -> 152 channels); `_m2l_stencil3` is the
+                 reference of both and the odd-size path.
   L2L / L2P:     local expansions re-centred down the pyramid, then one
                  [19, N] gather per particle and a second-order Taylor
                  evaluation.
@@ -37,13 +40,15 @@ docstring gives the design and the derivative formulas:
                  (`_sparse_near_field3`).
 
 Differences from the JAX package, each deliberate:
-  * the M2L convolution runs in full f32 at every level, with cuDNN's TF32
-    off around the call (the JAX package pins HIGHEST, and HIGH, bf16x3,
-    from r = 256: the deep chain's 256^3 level);
-  * the space-to-depth and its inverse are a reshape and a permute; the
-    JAX package's permutation-matrix products, identity contraction and
-    per-term interleaves are TPU layout workarounds. The channel order is
-    the same: (4a + 2b + d) * 10 + c in, (4c + 2d + e) * 19 + t out;
+  * the M2L runs in full f32 at every level: the kernel in FMA on the CUDA
+    cores, the plain convolution with cuDNN's TF32 off around the call (the
+    JAX package pins HIGHEST, and HIGH, bf16x3, from r = 256: the deep
+    chain's 256^3 level);
+  * the plain convolution's space-to-depth and its inverse are a reshape
+    and a permute; the JAX package's permutation-matrix products, identity
+    contraction and per-term interleaves are TPU layout workarounds. The
+    channel order is the same: (4a + 2b + d) * 10 + c in, (4c + 2d + e) *
+    19 + t out;
   * the pyramid pools by reshape-sum (the strided-slice form is a TPU
     tiling workaround), except the synthesized (deep-mode) grids, which
     pool in the JAX package's order (`_pool2x3`, and `_pool_seq3` for the
@@ -69,17 +74,17 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.diagnostics import profiling
+from nbodysim_tpu_torch.kernels.m2l3 import m2l3
 from nbodysim_tpu_torch.physics.barneshut import (
     _DEEP_SMOOTH, NEAR_CAP, _assemble, _bounding_box, _cell_ids,
     _compact_indices, _count_rows, _exact_couplings, _extract_heavy_outliers,
-    _full_f32_conv, _halo_cap, _iota, _m2l_conv_taps, _near_field_buckets,
-    _near_masked_blocked, _near_overflow, _outlier_flat_ids, _scatter_rows)
+    _halo_cap, _iota, _near_field_buckets, _near_masked_blocked,
+    _near_overflow, _outlier_flat_ids, _scatter_rows)
 
 _MAX_LEVELS_3D = 7   # 128^3 cells; the JAX package's cap
 _MAX_DEEP_3D = 8     # a 256^3 deep grid: 671 MB for its 10 moment channels
@@ -112,9 +117,9 @@ def _pool2x3(g):
     """2 x 2 x 2 sum-pool of [..., 2r, 2r, 2r, C] grids in the JAX package's
     `_pool2x3` order: x pairs, then y pairs, then z pairs. Used for the
     synthesized pyramid, whose quadrupoles (sx^2/m at absolute coordinates)
-    `_center_channels3` centres by subtracting ~m c^2: the pooled sums'
-    last bits then reach the deep local terms, so the order must be the
-    reference's."""
+    the M2L centres by subtracting ~m c^2 (`kernels.m2l3`): the pooled
+    sums' last bits then reach the deep local terms, so the order must be
+    the reference's."""
     g = g[..., 0::2, :, :, :] + g[..., 1::2, :, :, :]
     g = g[..., :, 0::2, :, :] + g[..., :, 1::2, :, :]
     return g[..., :, :, 0::2, :] + g[..., :, :, 1::2, :]
@@ -160,21 +165,37 @@ def _build_pyramid3(pos, mass, levels: int, synth_quad: bool = False):
     return grids, corner, size, ci, flat
 
 
+def _channel_stack3(g10):
+    """The 10 moment grids as one [..., 10] tensor: a view where they are
+    the channels of one channel-last tensor (as the pyramid and the tile
+    chain make them), else a stack."""
+    a = g10[0]
+    step, rem = divmod(g10[1].data_ptr() - a.data_ptr(), a.element_size())
+    base = a.untyped_storage().data_ptr()
+    if step > 0 and not rem and all(
+            c.shape == a.shape and c.stride() == a.stride()
+            and c.dtype == a.dtype
+            and c.untyped_storage().data_ptr() == base
+            and c.data_ptr() == a.data_ptr() + i * step * a.element_size()
+            for i, c in enumerate(g10)):
+        return a.as_strided(a.shape + (10,), a.stride() + (step,))
+    return torch.stack(g10, -1)
+
+
 def _m2l_level3(g10, corner, size, eps_sq, radius: int):
     """V-list pass at one full level -> p=2 local terms (19 x [r, r, r]).
 
-    Even grids (every real level) run as the parent-level convolution
-    (`_m2l_conv3`); the stencil is the reference and the odd-size path.
-    Even grids may carry leading batch axes (the deep chain's tiles), with
-    one corner per grid. Every call is the span `tree.m2l`, inside the
-    stage that makes it (`tree.downward`, `tree.deep`, `tree.tiles`)."""
+    Even grids (every real level) run through `kernels.m2l3.m2l3`: the
+    kernel on the card, the parent-level convolution on the CPU; the
+    stencil is the reference and the odd-size path. Even grids may carry
+    leading batch axes (the deep chain's tiles), with one corner per grid.
+    Every call is the span `tree.m2l`, inside the stage that makes it
+    (`tree.downward`, `tree.deep`, `tree.tiles`)."""
     r = g10[0].shape[-1]
     with profiling.span("tree.m2l"):
         if r % 2 == 0 and r >= 2:
-            qh = radius - 1
-            gx = F.pad(torch.stack(g10, -1), (0, 0) * 3 + (2 * qh, 2 * qh))
-            return _m2l_conv3(gx, corner, size, r, eps_sq, radius, row0=0,
-                              rows=r)
+            return m2l3(_channel_stack3(g10), corner, size, r, eps_sq,
+                        radius, row0=0, rows=r, x0=0)
         p = 2 * radius - 1
         window = tuple(F.pad(g, (p,) * 6) for g in g10)
         return _m2l_stencil3(window, corner, size, r, eps_sq, radius,
@@ -283,213 +304,6 @@ def _m2l_stencil3(window, corner, size, r_full: int, eps_sq, radius: int,
                  ms * tyzz, ms * tzzz)
         out = [o + t for o, t in zip(out, terms)]
     return tuple(out)
-
-
-# ---------------------------------------------------------------------------
-# M2L as one convolution at the parent level (see the 2D module): cell-centre
-# moments make the V-list translation-invariant, and the space-to-depth view
-# makes the parity-gated ring exact with taps at |PO|_inf <= R - 1.
-# 10 moment channels (m, d_x, d_y, d_z, Q_xx, Q_xy, Q_xz, Q_yy, Q_yz, Q_zz)
-# x 8 children = 80 in, 19 local terms x 8 children = 152 out, (2R-1)^3 taps.
-# ---------------------------------------------------------------------------
-
-
-def _m2l_conv_weights3(radius: int, eps_sq_hat, dtype, device):
-    """[(2R-1)^3, 80, 152] tap weights W[PO, f*10+c_in, e*19+t_out].
-
-    Scale-free: offsets in cell units, eps_sq_hat = eps_sq / s_l^2 (a
-    tensor: the bounding cube depends on the positions); the caller scales
-    outputs by s_l^-(2,3,4) per term class (at physical scale inv9
-    underflows f32). Includes the rank-4 couplings (dipole -> H,
-    quadrupole -> J)."""
-    po, el, fl, offs = _m2l_conv_taps(radius, radius, 3)
-    r = torch.as_tensor(offs, device=device).to(dtype)        # [T, 3]
-    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
-    q = rx * rx + ry * ry + rz * rz + eps_sq_hat
-    inv = torch.rsqrt(q)
-    inv3 = inv * inv * inv
-    inv5 = inv3 * inv * inv
-    inv7 = inv5 * inv * inv
-    inv9 = inv7 * inv * inv
-
-    txxx = 15.0 * rx * rx * rx * inv7 - 9.0 * rx * inv5
-    txxy = 15.0 * rx * rx * ry * inv7 - 3.0 * ry * inv5
-    txxz = 15.0 * rx * rx * rz * inv7 - 3.0 * rz * inv5
-    txyy = 15.0 * rx * ry * ry * inv7 - 3.0 * rx * inv5
-    txyz = 15.0 * rx * ry * rz * inv7
-    txzz = 15.0 * rx * rz * rz * inv7 - 3.0 * rx * inv5
-    tyyy = 15.0 * ry * ry * ry * inv7 - 9.0 * ry * inv5
-    tyyz = 15.0 * ry * ry * rz * inv7 - 3.0 * rz * inv5
-    tyzz = 15.0 * ry * rz * rz * inv7 - 3.0 * ry * inv5
-    tzzz = 15.0 * rz * rz * rz * inv7 - 9.0 * rz * inv5
-
-    # Rank-4 derivative tensor U_ijkl = dT_ijk/dr_l (15 unique).
-    x2, y2, z2 = rx * rx, ry * ry, rz * rz
-
-    def u_aaaa(a2):
-        return -105.0 * a2 * a2 * inv9 + 90.0 * a2 * inv7 - 9.0 * inv5
-
-    def u_aaab(ra, rb, a2):
-        return -105.0 * a2 * ra * rb * inv9 + 45.0 * ra * rb * inv7
-
-    def u_aabb(a2, b2):
-        return -105.0 * a2 * b2 * inv9 + 15.0 * (a2 + b2) * inv7 - 3.0 * inv5
-
-    def u_aabc(a2, rb, rc):
-        return -105.0 * a2 * rb * rc * inv9 + 15.0 * rb * rc * inv7
-
-    uxxxx, uyyyy, uzzzz = u_aaaa(x2), u_aaaa(y2), u_aaaa(z2)
-    uxxxy, uxxxz = u_aaab(rx, ry, x2), u_aaab(rx, rz, x2)
-    uxyyy, uyyyz = u_aaab(ry, rx, y2), u_aaab(ry, rz, y2)
-    uxzzz, uyzzz = u_aaab(rz, rx, z2), u_aaab(rz, ry, z2)
-    uxxyy, uxxzz, uyyzz = u_aabb(x2, y2), u_aabb(x2, z2), u_aabb(y2, z2)
-    uxxyz = u_aabc(x2, ry, rz)
-    uxyyz = u_aabc(y2, rx, rz)
-    uxyzz = u_aabc(z2, rx, ry)
-
-    def row(f3, j6, h10):
-        return torch.stack(tuple(f3) + tuple(j6) + tuple(h10), -1)
-
-    # monopole: F = inv3 r_i; J = 3 r_i r_j inv5 - delta inv3; H = T.
-    row_m = row(
-        (inv3 * rx, inv3 * ry, inv3 * rz),
-        (3.0 * rx * rx * inv5 - inv3, 3.0 * rx * ry * inv5,
-         3.0 * rx * rz * inv5, 3.0 * ry * ry * inv5 - inv3,
-         3.0 * ry * rz * inv5, 3.0 * rz * rz * inv5 - inv3),
-        (txxx, txxy, txxz, txyy, txyz, txzz, tyyy, tyyz, tyzz, tzzz))
-    # dipole d_a: F_i = delta_ia inv3 - 3 r_i r_a inv5; J_ij = -T_ija;
-    # H_ijk = +U_ijka.
-    row_dx = row(
-        (inv3 - 3.0 * rx * rx * inv5, -3.0 * ry * rx * inv5,
-         -3.0 * rz * rx * inv5),
-        (-txxx, -txxy, -txxz, -txyy, -txyz, -txzz),
-        (uxxxx, uxxxy, uxxxz, uxxyy, uxxyz, uxxzz,
-         uxyyy, uxyyz, uxyzz, uxzzz))
-    row_dy = row(
-        (-3.0 * rx * ry * inv5, inv3 - 3.0 * ry * ry * inv5,
-         -3.0 * rz * ry * inv5),
-        (-txxy, -txyy, -txyz, -tyyy, -tyyz, -tyzz),
-        (uxxxy, uxxyy, uxxyz, uxyyy, uxyyz, uxyzz,
-         uyyyy, uyyyz, uyyzz, uyzzz))
-    row_dz = row(
-        (-3.0 * rx * rz * inv5, -3.0 * ry * rz * inv5,
-         inv3 - 3.0 * rz * rz * inv5),
-        (-txxz, -txyz, -txzz, -tyyz, -tyzz, -tzzz),
-        (uxxxz, uxxyz, uxxzz, uxyyz, uxyzz, uxzzz,
-         uyyyz, uyyzz, uyzzz, uzzzz))
-    # quadrupole Q_ab (stored once per symmetric pair, mult folds the
-    # off-diagonal double count): F_i = mult/2 T_iab; J_ij = -mult/2 U_ijab.
-    zeros10 = (torch.zeros_like(rx),) * 10
-
-    def qrow(mult, t3, u6):
-        h = 0.5 * mult
-        return row((h * t3[0], h * t3[1], h * t3[2]),
-                   tuple(-h * u for u in u6), zeros10)
-
-    row_qxx = qrow(1.0, (txxx, txxy, txxz),
-                   (uxxxx, uxxxy, uxxxz, uxxyy, uxxyz, uxxzz))
-    row_qxy = qrow(2.0, (txxy, txyy, txyz),
-                   (uxxxy, uxxyy, uxxyz, uxyyy, uxyyz, uxyzz))
-    row_qxz = qrow(2.0, (txxz, txyz, txzz),
-                   (uxxxz, uxxyz, uxxzz, uxyyz, uxyzz, uxzzz))
-    row_qyy = qrow(1.0, (txyy, tyyy, tyyz),
-                   (uxxyy, uxyyy, uxyyz, uyyyy, uyyyz, uyyzz))
-    row_qyz = qrow(2.0, (txyz, tyyz, tyzz),
-                   (uxxyz, uxyyz, uxyzz, uyyyz, uyyzz, uyzzz))
-    row_qzz = qrow(1.0, (txzz, tyzz, tzzz),
-                   (uxxzz, uxyzz, uxzzz, uyyzz, uyzzz, uzzzz))
-
-    B = torch.stack((row_m, row_dx, row_dy, row_dz, row_qxx, row_qxy,
-                     row_qxz, row_qyy, row_qyz, row_qzz), 1)  # [T, 10, 19]
-    k3 = (2 * radius - 1) ** 3
-    ci = fl[:, None, None] * 10 + np.arange(10)[None, :, None]
-    ti = el[:, None, None] * 19 + np.arange(19)[None, None, :]
-    pb = np.broadcast_to(po[:, None, None], ci.shape)
-
-    def idx(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
-                               device=device).expand(B.shape)
-
-    W = torch.zeros((k3, 80, 152), dtype=dtype, device=device)
-    W[idx(pb), idx(ci), idx(ti)] = B
-    return W
-
-
-def _center_channels3(g10, corner, size, r_full: int, x0: int):
-    """Raw origin moments [..., X, r, r, 10] -> moments about each cell's own
-    centre in CELL UNITS: (m, d_i / s_l, Q_ij / s_l^2). x0 = global x
-    index of slab 0; `corner` [..., 3] holds one corner per leading index."""
-    dtype, device = g10.dtype, g10.device
-    s_l = size / r_full
-    inv_s = 1.0 / s_l
-    shape = g10.shape[-4:-1]
-    cx = corner[..., 0, None, None, None] \
-        + (_iota(shape, 0, device) + x0).to(dtype) * s_l + 0.5 * s_l
-    cy = corner[..., 1, None, None, None] \
-        + _iota(shape, 1, device).to(dtype) * s_l + 0.5 * s_l
-    cz = corner[..., 2, None, None, None] \
-        + _iota(shape, 2, device).to(dtype) * s_l + 0.5 * s_l
-    m = g10[..., 0]
-    sx, sy, sz = g10[..., 1], g10[..., 2], g10[..., 3]
-    inv2 = inv_s * inv_s
-    return torch.stack(
-        (m,
-         (sx - m * cx) * inv_s,
-         (sy - m * cy) * inv_s,
-         (sz - m * cz) * inv_s,
-         (g10[..., 4] - 2.0 * cx * sx + m * cx * cx) * inv2,
-         (g10[..., 5] - cx * sy - cy * sx + m * cx * cy) * inv2,
-         (g10[..., 6] - cx * sz - cz * sx + m * cx * cz) * inv2,
-         (g10[..., 7] - 2.0 * cy * sy + m * cy * cy) * inv2,
-         (g10[..., 8] - cy * sz - cz * sy + m * cy * cz) * inv2,
-         (g10[..., 9] - 2.0 * cz * sz + m * cz * cz) * inv2), -1)
-
-
-def _m2l_conv3(gx, corner, size, r_full: int, eps_sq, radius: int,
-               row0: int, rows: int):
-    """One 3D M2L level as the parent-level convolution.
-
-    gx: [..., rows + 4(R-1), r_full, r_full, 10] raw-moment x-window whose
-    first and last 2(R-1) slabs are halo (zeros beyond the grid); its slab
-    0 is global x index row0 - 2(R-1). row0 and rows must be even. Leading
-    axes are a batch of grids (`corner` [..., 3], one corner each) run as
-    one convolution batch. Returns the 19 local terms, [..., rows, r_full,
-    r_full] each.
-
-    XLA's NDHWC/DHWIO `conv_general_dilated` becomes `F.conv3d` on
-    NCDHW/OIDHW; both are cross-correlations, so the taps need no flip. It
-    runs in full f32 (`_full_f32_conv`) at every level, the deep chain's
-    256^3 included."""
-    qh = radius - 1
-    h = r_full // 2
-    hb = rows // 2
-    lead = gx.shape[:-4]
-    ch = _center_channels3(gx, corner, size, r_full, row0 - 2 * qh)
-    X = rows + 4 * qh
-    # Space-to-depth: channel (4a + 2b + d) * 10 + c of parent cell
-    # (i, j, k) is channel c of child (2i + a, 2j + b, 2k + d), the child
-    # enumeration of `_m2l_conv_taps`; laid out channel-first for conv3d.
-    m8 = (ch.reshape(-1, X // 2, 2, h, 2, h, 2, 10)
-          .permute(0, 2, 4, 6, 7, 1, 3, 5)
-          .reshape(-1, 80, X // 2, h, h))
-    m8 = F.pad(m8, (qh, qh, qh, qh))      # [B, 80, X/2, h + 2qh, h + 2qh]
-    s_l = size / r_full
-    W = _m2l_conv_weights3(radius, eps_sq / (s_l * s_l), gx.dtype, gx.device)
-    k = 2 * radius - 1
-    weight = W.reshape(k, k, k, 80, 152).permute(4, 3, 0, 1, 2).contiguous()
-    with _full_f32_conv():
-        out = F.conv3d(m8.contiguous(), weight)      # [B, 152, hb, h, h]
-    inv_s = 1.0 / s_l
-    s2 = inv_s * inv_s
-    # F, J, H scale as s_l^-(2, 3, 4).
-    scales = torch.stack((s2,) * 3 + (s2 * inv_s,) * 6 + (s2 * s2,) * 10)
-    # Channel (4c + 2d + e) * 19 + t of parent cell (i, j, k) is term t of
-    # child (2i + c, 2j + d, 2k + e): de-space-to-depth to
-    # [19, B, rows, r, r].
-    terms = (out.reshape(-1, 2, 2, 2, 19, hb, h, h)
-             .permute(4, 0, 5, 1, 6, 2, 7, 3)
-             .reshape((19,) + lead + (rows, r_full, r_full)))
-    return tuple(terms[t] * scales[t] for t in range(19))
 
 
 def _taylor_eval3(local19, ex, ey, ez):
@@ -1102,8 +916,8 @@ def _bh3_accelerations(pos, mass, levels: int, eps_sq: float,
     """The octree force evaluation (the JAX package's `_bh3_accelerations`).
     With use_kernels, the near field is K7 and the outlier couplings are K1
     (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor those
-    wrappers run their plain versions. use_kernels=False runs the plain
-    versions on any device. deep_levels > levels turns on the deep-overflow
+    wrappers run their plain versions. use_kernels=False runs their plain
+    versions on any device; the M2L takes its kernel on any CUDA tensor. deep_levels > levels turns on the deep-overflow
     chain (`_deep_chain3`), tile_levels > 0 its hot-zone tiles, and
     nf_sparse (with the deep chain) the sparse near field in place of the
     bucket grid and K7.
@@ -1224,7 +1038,7 @@ def bh3_accelerations(pos: torch.Tensor, mass: torch.Tensor,
     use_kernels (default: the tensors lie on a CUDA device) routes the
     near field and the outlier couplings to K7, K1 and K4; False runs the
     same tree code through their plain versions (the reference on the
-    card)."""
+    card). The M2L runs its kernel on a CUDA tensor either way."""
     if pos.shape[1] != 3:
         raise ValueError("bh3_accelerations is the dim=3 tree code")
     levels = _resolve_levels3(config, pos.shape[0])

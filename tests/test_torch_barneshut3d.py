@@ -27,6 +27,7 @@ from nbodysim_tpu.physics import barneshut3d as jb3
 from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu.physics.integrators import make_step as jax_make_step
 import nbodysim_tpu_torch as nt
+from nbodysim_tpu_torch.kernels import m2l3 as km3
 from nbodysim_tpu_torch.physics import barneshut as tb
 from nbodysim_tpu_torch.physics import barneshut3d as tb3
 from nbodysim_tpu_torch.physics import forces as tforces
@@ -102,7 +103,7 @@ def test_m2l_conv3_matches_jax_and_the_stencil(levels, radius):
     r, qh, p = 1 << levels, radius - 1, 2 * radius - 1
     gx = torch.nn.functional.pad(torch.stack(g, -1),
                                  (0, 0) * 3 + (2 * qh, 2 * qh))
-    conv = tb3._m2l_conv3(gx, corner, size, r, 1.0, radius, row0=0, rows=r)
+    conv = km3._m2l_conv3(gx, corner, size, r, 1.0, radius, row0=0, rows=r)
     jc, js = jnp.asarray(as_np(corner)), jnp.asarray(as_np(size))
     jconv = jb3._m2l_conv3(tuple(jnp.asarray(as_np(gx[..., c]))
                                  for c in range(10)),

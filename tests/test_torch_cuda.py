@@ -1,8 +1,9 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7 and the potential
-kernel against their plain torch versions on the card (the potential also
-against the float64 oracle), their launch counts, the N=25k main path,
-the 2D and 3D tree code and the large-N collision passes through the kernels
-against the same code through the plain versions.
+"""PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7, the potential
+kernel and the octree's M2L kernel against their plain torch versions on the
+card (the potential also against the float64 oracle), their launch counts,
+the N=25k main path, the 2D and 3D tree code and the large-N collision
+passes through the kernels against the same code through the plain
+versions.
 
 Marked `cuda`; every test skips without a CUDA device. On a machine with a
 card and without JAX (tests/conftest.py imports JAX), run:
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 import nbodysim_tpu_torch as nt
+from nbodysim_tpu_torch.kernels import m2l3 as km3
 from nbodysim_tpu_torch.kernels.allpairs import (
     _launch, _launch_potential, allpairs_accelerations,
     allpairs_accelerations_plain, allpairs_accelerations_wide,
@@ -880,6 +882,99 @@ def test_deep3d_chain_runs_through_the_kernels(dev, nf_sparse):
     assert bool(torch.isfinite(got).all())
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def _m2l3_case(dev, case):
+    """(g, corner, size, r, radius, row0, rows, x0) of one M2L kernel case,
+    made on the card from the moment pyramid of a clustered blob (N =
+    65,536, the deep chain's test input), as the callers pass them: a full
+    level (channel-last, as the pyramid holds it), a batch of tile grids
+    with one corner each, a banded x-window (its halo slabs given, or cut
+    at the grid's edge), a grid whose cells are mostly empty."""
+    from nbodysim_tpu_torch.physics import barneshut3d as bh3
+    from nbodysim_tpu_torch.scenes.blob import clustered_blob
+
+    kind, r, radius = case
+    n = 500 if kind == "empty" else 65_536
+    pos, mass = clustered_blob(n, center=(500.0, -300.0, 200.0),
+                               span=2000.0, seed=3, device=dev)
+    top = max(r.bit_length() - 1, 5)
+    grids, corner, size, _, _ = bh3._build_pyramid3(
+        pos, mass, top, synth_quad=r == 64)
+    lv = r.bit_length() - 1
+    g = bh3._channel_stack3(grids[lv if kind != "tiles" else 5])
+    qh = radius - 1
+    if kind in ("full", "empty"):
+        if kind == "empty":
+            g = g.clone()
+            g[1::3] = 0.0
+        return g, corner, size, r, radius, 0, r, 0
+    if kind == "tiles":
+        s32 = size / 32
+        orig = [(0, 0, 0), (8, 16, 4), (16, 8, 16)]
+        g = torch.stack([g[a:a + r, b:b + r, c:c + r] for a, b, c in orig])
+        corner_t = corner + torch.tensor(orig, dtype=torch.float32,
+                                         device=dev) * s32
+        return g, corner_t, r * s32, r, radius, 0, r, 0
+    row0, rows = (8, 8) if kind == "band" else (0, 8)
+    x0 = max(row0 - 2 * qh, 0)
+    return (g[x0:row0 + rows + 2 * qh], corner, size, r, radius, row0, rows,
+            x0)
+
+
+M2L3_CASES = ([("full", r, radius) for r in (4, 8, 16, 64)
+               for radius in (2, 3)]
+              + [("tiles", 16, 2), ("band", 32, 2), ("band", 32, 3),
+                 ("band0", 32, 2), ("empty", 16, 2)])
+
+
+@pytest.mark.parametrize("case", M2L3_CASES, ids=str)
+def test_m2l3_matches_plain(dev, case):
+    """The M2L kernel against its plain version on the card (cuDNN with
+    TF32 off): each of the 19 terms within 1e-5 of that term's max |value|
+    over the grid; one launch counted. The kernel centres the moments op for
+    op as the plain version does, so they differ in the contraction's
+    summation order and the table's roundings alone."""
+    g, corner, size, r, radius, row0, rows, x0 = _m2l3_case(dev, case)
+    launches = km3.m2l3.launches
+    got = km3.m2l3(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                   x0=x0)
+    assert km3.m2l3.launches == launches + 1
+    ref = km3.m2l3_plain(g, corner, size, r, 25.0, radius, row0=row0,
+                         rows=rows, x0=x0)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 19
+    for t, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape == g.shape[:-4] + (rows, r, r)
+        scale = float(b.abs().max())
+        assert scale > 0 and bool(torch.isfinite(a).all()), t
+        assert float((a - b).abs().max()) <= 1e-5 * scale, t
+
+
+def test_m2l3_replays_bit_for_bit(dev):
+    """Two launches on one input agree bit for bit (no atomics)."""
+    g, corner, size, r, radius, row0, rows, x0 = _m2l3_case(
+        dev, ("full", 64, 2))
+    a = km3.m2l3(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                 x0=x0)
+    b = km3.m2l3(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                 x0=x0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_m2l3_raises_on_what_it_does_not_take(dev):
+    g, corner, size, r, radius, _, _, _ = _m2l3_case(dev, ("full", 16, 2))
+
+    def launch(g_=g, r_=r, radius_=radius, row0=0, rows=16, corner_=corner):
+        return km3.m2l3(g_, corner_, size, r_, 25.0, radius_, row0=row0,
+                        rows=rows, x0=0)
+
+    for bad in (dict(g_=g.double()), dict(g_=g[..., :9]),
+                dict(corner_=corner.double()), dict(rows=15),
+                dict(row0=1, rows=8), dict(rows=18), dict(radius_=6),
+                dict(g_=g[:15, :15, :15], r_=15)):
+        with pytest.raises(ValueError):
+            launch(**bad)
 
 
 def test_tile_selection_on_the_card_equals_the_cpu(dev):

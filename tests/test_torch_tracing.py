@@ -18,9 +18,11 @@ deep-chain merger, and of a 3D Plummer sphere whose buckets overflow (the
 octree's deep chain, K7), `host_syncs` equals the syncs that
 `torch.cuda.set_sync_debug_mode("warn")` reports less the uncounted
 host-to-device copies of host constants, recording adds no sync, and the
-states are bit-identical with recording on and off; `Simulation.run(10)`
-on the N = 25,000 disc makes no host sync; a viewer frame's `hud_text()`
-launches the potential kernel once and syncs only in its two `host_read`s.
+states are bit-identical with recording on and off; each M2L level of the
+Plummer step is one launch of the M2L kernel, with no cuDNN and no copy
+under `tree.m2l`; `Simulation.run(10)` on the N = 25,000 disc makes no host
+sync; a viewer frame's `hud_text()` launches the potential kernel once and
+syncs only in its two `host_read`s.
 This file imports no JAX; on a machine with a card, run:
 
     python -m pytest --noconftest -q tests/test_torch_tracing.py
@@ -404,6 +406,52 @@ def test_card_plummer_syncs_are_the_host_reads(dev):
         "host_read.deep_targets", "host_read.deep_rows",
         "host_read.scatter_rows", "host_read.apply_rows"}
     assert {s.name for s in rec.select("tree.m2l", under="tree.deep")}
+
+
+@pytest.mark.cuda
+def test_card_plummer_m2l_runs_the_kernel(dev):
+    """One step of the N = 131,072 Plummer sphere after its first: every
+    M2L level the config resolves (levels 2..L, the deep levels, the tile
+    sub-levels) is one launch of the M2L kernel (`m2l3.launches`), nothing
+    under `tree.m2l` calls cuDNN or copies memory, `host_syncs` stays the
+    four reads, and the forces match the same state's CPU plain route."""
+    from nbodysim_tpu_torch.kernels.m2l3 import m2l3
+
+    sim = _plummer(131_072, dev)
+    sim.run(1)
+    cfg = sim.config
+    n = cfg.n
+    levels = bh3._resolve_levels3(cfg, n)
+    deep = bh3._resolve_deep_levels3(cfg, levels)
+    tk, _, _ = bh3._resolve_tile_params3(cfg, deep, bh3._resolve_radius3(cfg))
+    assert deep and tk
+    launches = m2l3.launches
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof, profiling.recording() as rec:
+        sim.run(1)
+    torch.cuda.synchronize()
+    expected = (levels - 1) + (deep - levels) + tk
+    assert rec.counters["m2l3.launches"] == expected
+    assert m2l3.launches == launches + expected
+    assert rec.counters["host_syncs"] == 4
+    events = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CUDA]
+    m2l = [e.time_range for e in events if e.name == "tree.m2l"]
+    assert len(m2l) == expected
+    inside = [e.name for e in events if e.name != "tree.m2l" and any(
+        r.start <= e.time_range.start <= r.end for r in m2l)]
+    assert not [x for x in inside if "cudnn" in x or "conv" in x
+                or "Memcpy" in x or x.startswith("aten::copy_")], inside
+
+    pos, mass = sim.state.pos, sim.state.mass
+    got = nt.compute_accelerations(pos, mass, cfg)
+    ref = nt.compute_accelerations(pos.cpu(), mass.cpu(), cfg)
+    err = (got.cpu() - ref).norm(dim=1) / ref.norm(dim=1)
+    assert float(err.median()) < 1e-4
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * float(
+        ref.abs().max())
 
 
 @pytest.mark.cuda
