@@ -20,9 +20,7 @@ from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.physics.collisions import (
     resolve_collision_phase_for_state,
 )
-from nbodysim_tpu_torch.physics.barneshut import (
-    _OVERFLOW_CAP, bh_near_overflow)
-from nbodysim_tpu_torch.physics.barneshut3d import bh3_near_overflow
+from nbodysim_tpu_torch.physics.barneshut import check_tree_capacity
 from nbodysim_tpu_torch.physics.forces import resolve_config_for_state
 from nbodysim_tpu_torch.physics.integrators import (
     make_rollout,
@@ -133,16 +131,7 @@ class Simulation:
         exceeded = False
         cfg, state = self.config, self.state
         if cfg.force_backend == "bh" and not cfg.bh_deep_levels:
-            probe = bh3_near_overflow if state.dim == 3 else bh_near_overflow
-            over = probe(state.pos, state.mass, cfg)
-            if over > _OVERFLOW_CAP:
-                exceeded = True
-                warnings.warn(
-                    f"BH near-field overflow {over} exceeds the residual "
-                    f"capacity {_OVERFLOW_CAP} on {when}; excess particles "
-                    f"get no near-field force. Set bh_deep_levels=-1 (the "
-                    f"deep-overflow chain), or use force_backend='cuda' for "
-                    f"this scene.", RuntimeWarning)
+            exceeded = check_tree_capacity(state.pos, state.mass, cfg, when)
         if not cfg.enable_collisions:
             return exceeded
         cap = collisions._OVERFLOW_CAP

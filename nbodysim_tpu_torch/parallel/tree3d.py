@@ -10,7 +10,8 @@ computed replicated. The cell sort, the bucket scatter, the near field and
 the L2P run over a compacted per-band window set, the whole set sorted
 where the window overfills it (a host branch on one count).
 
-Decomposition of `physics/barneshut3d._bh3_accelerations` across the mesh:
+Decomposition of `physics/barneshut._bh_accelerations` (the octree's stages)
+across the mesh:
 
   heavy coupling           -> local rows                      (after psum)
   bulk <- outliers (K4)    -> local rows                      (after psum)

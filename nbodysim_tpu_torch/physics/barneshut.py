@@ -1,5 +1,15 @@
-"""The 2D tree code: a stencil-based multilevel FMM (port of
-`nbodysim_tpu.physics.barneshut`).
+"""The tree code: one force-evaluation pipeline for the quadtree (2D) and
+the octree (3D), and the quadtree's stages: a stencil-based multilevel FMM
+(port of `nbodysim_tpu.physics.barneshut`).
+
+The pipeline (`bh_accelerations` -> `_bh_accelerations` -> `_deep_chain`
+-> `_tile_refine` -> `_tile_eval`) is written once. It takes each stage
+from the tree of the state's dimension (`_stages`): the quadtree's from
+this module, the octree's from `physics/barneshut3d.py`. The same module
+holds what both trees share outright: the exact couplings, the bucket grid
+and its residual, the assembly and the row compactions
+(`_compact_rows`). The state probes (`bh_near_overflow`,
+`resolve_tree_for_state`, `check_tree_capacity`) serve both dimensions.
 
 A kernel-independent FMM over the complete quadtree of a 2^L x 2^L grid;
 the JAX module's docstring gives the design at length:
@@ -21,8 +31,8 @@ the JAX module's docstring gives the design at length:
                  exact forces: outliers <- all through K1 with separate
                  sources, bulk <- outliers through K4.
   deep chain:    with `bh_deep_levels != 0` (switched on by
-                 `forces.resolve_config_for_state` where the buckets overflow
-                 past the residual's cap) the pyramid and the downward pass
+                 `resolve_tree_for_state` where the buckets overflow past
+                 the residual's cap) the pyramid and the downward pass
                  continue past the bucket level; targets near an overflowing
                  cell take the deep level's local expansion plus smoothed
                  3 x 3 cell aggregates (the outer ring folded into the local
@@ -43,9 +53,6 @@ Differences from the JAX package, each deliberate:
     (`_aggregate_window_eval`): the JAX package's packed variants sum the
     same terms in the same order for the TPU's gather row rate.
 
-The bucket grid, its gather and the overflow residual take 2D and 3D
-alike; `physics/barneshut3d.py` (the octree) shares them.
-
 Scatter order: `index_add_` on CUDA uses atomics, so the pyramid's sums
 differ in the last bits from run to run; tolerances state that as their
 reason.
@@ -55,7 +62,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import NamedTuple, Optional, Tuple
+import warnings
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,10 +109,15 @@ def _cell_ids(pos, corner, size, res: int):
     and their row-major flat ids [N]."""
     u = (pos - corner) / size
     ci = torch.clamp((u * res).to(torch.int64), 0, res - 1)
+    return ci, _flat_ids(ci, res)
+
+
+def _flat_ids(ci, res: int):
+    """Row-major flat ids [N] of cell indices [N, D] on the res^D grid."""
     flat = ci[:, 0]
-    for a in range(1, pos.shape[1]):
+    for a in range(1, ci.shape[1]):
         flat = flat * res + ci[:, a]
-    return ci, flat
+    return flat
 
 
 def _moment_payload(pos, mass):
@@ -1122,75 +1135,90 @@ def _scatter_rows(n, idx, *rows):
     return out
 
 
-def _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
+def _compact_rows(mask, cap: int, what: str):
+    """The True rows of `mask` compacted to `cap`, for a pass that runs on
+    them alone: the count is one host sync (`host_read.<what>_rows`) and
+    the counters `tree.rows_needed.<what>` / `.rows_computed.<what>` keep
+    it. Returns (idx [cap] clamped into range, valid [cap]) where the count
+    fits the cap, else None: the pass then takes every row (both give the
+    same result)."""
+    n = mask.shape[0]
+    sidx, count = _compact_indices(mask, cap)
+    count = profiling.host_read(count, what + "_rows")
+    _count_rows(what, count, cap, n)
+    if count > cap:
+        return None
+    return torch.clamp(sidx, max=n - 1), sidx < n
+
+
+def _tile_windows(local_deep, orig, t: int, radius: int):
+    """Each tile's window [T, W, W, 9] of the level-D locals, zero beyond
+    the grid: one stacked gather, no host sync for the origins."""
+    H = radius
+    locDp = F.pad(torch.stack(local_deep, -1), (0, 0, H, H, H, H))
+    span = torch.arange(t + 2 * H, device=orig.device)
+    rows = orig[:, 0, None] + H + span                       # [T, W]
+    cols = orig[:, 1, None] + H + span
+    return locDp[rows[:, :, None], cols[:, None, :]]
+
+
+def _tile_eval(tree, pos, payload, bulk_pos, ci_f, b_par, local_w,
                tid, tile_slot, orig, corner, size, deep: int, radius: int,
                eps_sq, k: int, t: int, T: int):
     """Per-tile chain and refined per-particle evaluation, given the window
-    slice of the level-D locals. The scatter takes only the rows that can
-    reach a selected window, and the apply only the refined targets,
-    each compacted to a fixed capacity when the count fits it (a host
-    sync each, `host_read`), else over all rows; both give the same
-    result. The counters `tree.rows_needed.scatter` / `.apply` and
-    `tree.rows_computed.*` keep both counts."""
+    slice of the level-D locals, with `tree`'s stages (`_stages`). The
+    scatter takes only the rows that can reach a selected window, and the
+    apply only the refined targets, each compacted to its cap when the
+    count fits it (`_compact_rows`: `scatter`, `apply`), else over all
+    rows; both give the same result."""
     n = pos.shape[0]
     geo = (corner, size, deep, radius, k, t, T)
-    s_cap = _scatter_cap(n)
-    g3k = None
+    g = None
+    s_cap = tree.scatter_cap(n)
     if s_cap < n:
-        sidx_s, n_src = _compact_indices(
-            _tile_src_mask(ci_f, tile_slot, deep, radius, t, T), s_cap)
-        n_src = profiling.host_read(n_src, "scatter_rows")
-        _count_rows("scatter", n_src, s_cap, n)
-        if n_src <= s_cap:
-            valid_s = sidx_s < n
-            ss = torch.clamp(sidx_s, max=n - 1)
-            g3k = _tile_scatter(
+        rows = _compact_rows(
+            tree.tile_src_mask(ci_f, tile_slot, deep, radius, t, T), s_cap,
+            "scatter")
+        if rows is not None:
+            ss, valid_s = rows
+            g = tree.tile_scatter(
                 torch.where(valid_s[:, None], payload[ss], 0.0),
                 bulk_pos[ss], ci_f[ss], tile_slot, orig, *geo,
                 src_mask=valid_s)
-    if g3k is None:
-        g3k = _tile_scatter(payload, bulk_pos, ci_f, tile_slot, orig, *geo)
-    local_w = _tile_chain(local_w, g3k, orig, corner, size, deep, radius,
-                          eps_sq, k, t, T)
+    if g is None:
+        g = tree.tile_scatter(payload, bulk_pos, ci_f, tile_slot, orig, *geo)
+    local_w = tree.tile_chain(local_w, g, orig, corner, size, deep,
+                              radius, eps_sq, k, t, T)
 
-    cap = _refined_cap(n)
+    cap = tree.refined_cap(n)
     if cap < n:
-        sidx, n_cand = _compact_indices((tile_slot[tid] < T) & b_par, cap)
-        n_cand = profiling.host_read(n_cand, "apply_rows")
-        _count_rows("apply", n_cand, cap, n)
-        if n_cand <= cap:
-            valid = sidx < n
-            si = torch.clamp(sidx, max=n - 1)
-            r_s, far_s, near_s = _tile_apply(
+        rows = _compact_rows((tile_slot[tid] < T) & b_par, cap, "apply")
+        if rows is not None:
+            si, valid = rows
+            r_s, far_s, near_s = tree.tile_apply(
                 pos[si], payload[si], bulk_pos[si], ci_f[si],
-                b_par[si] & valid, local_w, g3k, tile_slot, orig,
+                b_par[si] & valid, local_w, g, tile_slot, orig,
                 corner, size, deep, radius, eps_sq, k, t, T)
             return tuple(_scatter_rows(
                 n, torch.where(valid & r_s, si, n), r_s, far_s, near_s))
-    return _tile_apply(pos, payload, bulk_pos, ci_f, b_par, local_w, g3k,
-                       tile_slot, orig, corner, size, deep, radius, eps_sq,
-                       k, t, T)
+    return tree.tile_apply(pos, payload, bulk_pos, ci_f, b_par, local_w, g,
+                           tile_slot, orig, corner, size, deep, radius,
+                           eps_sq, k, t, T)
 
 
 def _tile_refine(pos, payload, bulk_pos, ci_f, b_par, local_deep,
                  corner, size, deep: int, radius: int, eps_sq,
                  k: int, t: int, T: int):
-    """Hot-zone sub-box refinement: continue the deep chain k more levels
-    inside the T hottest t x t-cell tiles of the deepest level, so the
-    aggregates' smoothing scale drops 2^k where the targets crowd (see the
-    JAX module). Targets whose home tile is not selected keep the deep
-    path. Returns (refined [N] bool, far_ref [N, 2], near_ref [N, 2]),
-    unscaled by g_const and garbage where ~refined."""
-    H = radius
-    tid, tile_slot, orig = _tile_select(ci_f, b_par, deep, t, T, radius)
-    # Each tile's window of the level-D locals (zero-padded by H): one
-    # gather, no host sync for the origins.
-    locDp = F.pad(torch.stack(local_deep, -1), (0, 0, H, H, H, H))
-    span = torch.arange(t + 2 * H, device=pos.device)
-    rows = orig[:, 0, None] + H + span                       # [T, W]
-    cols = orig[:, 1, None] + H + span
-    local_w = locDp[rows[:, :, None], cols[:, None, :]]      # [T, W, W, 9]
-    return _tile_eval(pos, payload, bulk_pos, ci_f, b_par, local_w,
+    """Hot-zone sub-box refinement, in 2D and 3D: continue the deep chain k
+    more levels inside the T hottest tiles (t cells a side) of the deepest
+    level, so the aggregates' smoothing scale drops 2^k where the targets
+    crowd (see the JAX module). Targets whose home tile is not selected
+    keep the deep path. Returns (refined [N] bool, far_ref [N, D],
+    near_ref [N, D]), unscaled by g_const and garbage where ~refined."""
+    tree = _stages(pos.shape[1])
+    tid, tile_slot, orig = tree.tile_select(ci_f, b_par, deep, t, T, radius)
+    local_w = tree.tile_windows(local_deep, orig, t, radius)
+    return _tile_eval(tree, pos, payload, bulk_pos, ci_f, b_par, local_w,
                       tid, tile_slot, orig, corner, size, deep, radius,
                       eps_sq, k=k, t=t, T=T)
 
@@ -1210,63 +1238,70 @@ def _deep_targets(flat_nf, flat, is_out, res: int, near_cap: int,
     return bmask.reshape(-1)[flat] & ~is_out
 
 
-def _deep_chain(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
-                b_par, far, near, levels: int, deep: int, eps_sq: float,
-                g_const: float, radius: int, tile_levels: int,
+def _deep_chain(tree, pos, bulk_pos, tree_mass, grids, local, corner, size,
+                ci_f, b_par, far, near, levels: int, deep: int,
+                eps_sq: float, g_const: float, radius: int, tile_levels: int,
                 tile_size: int, tile_count: int):
-    """The deep branch of `_bh_accelerations`: continue the downward pass
-    from the bucket level's locals to `deep`, and give the deep-path
-    targets (b_par) the deep L2P against the ring-folded locals plus the
-    inner 3 x 3 smoothed aggregates (the span `tree.deep`), then the tile
-    refinement (`tree.tiles`). Returns the overridden (far, near), scaled
-    by g_const."""
-    n = pos.shape[0]
+    """The deep branch of `_bh_accelerations`, with `tree`'s stages:
+    continue the downward pass from the bucket level's locals to `deep`,
+    and give the deep-path targets (b_par) the deep L2P against the
+    ring-folded locals plus the inner 3^D smoothed aggregates (the span
+    `tree.deep`), then the tile refinement (`tree.tiles`). Returns the
+    overridden (far, near), scaled by g_const. The octree first reads
+    whether any target takes the deep path (`host_read.deep_targets`), and
+    without one nothing changes and nothing runs."""
+    n, dim = pos.shape
     with profiling.span("tree.deep"):
+        if tree.reads_deep_targets and not profiling.host_read(
+                b_par.any(), "deep_targets"):
+            return far, near
         for lv in range(levels + 1, deep + 1):
-            terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
-            up = _l2l_upsample(local, size / (1 << lv))
+            terms = tree.m2l_level(grids[lv], corner, size, eps_sq, radius)
+            up = tree.l2l_upsample(local, size / (1 << lv))
             local = tuple(u + t for u, t in zip(up, terms))
         local_deep = local
 
-        payload = _moment_payload(pos, tree_mass)
+        payload = tree.moment_payload(pos, tree_mass)
         rrd = radius - 1
         rin = min(rrd, 1)    # inner aggregate window; the ring folds into L2P
         # The tiles must see the UN-folded local_deep: their sub-level chain
-        # re-decomposes the window the fold covers.
-        local_agg = _fold_aggregate_ring(
-            local_deep,
-            tuple(F.pad(g, (rrd, rrd, rrd, rrd)) for g in grids[deep]),
-            corner, size, 1 << deep, eps_sq, radius, row0=0, rows=1 << deep)
-        g3_pad = F.pad(torch.stack(grids[deep][:3], -1),
-                       (0, 0, rin, rin, rin, rin))
+        # re-decomposes the window the fold covers. Below R = 3 the fold is
+        # a no-op: its padded window (7 GB at the octree's 256^3) is not
+        # built.
+        local_agg = local_deep
+        if rrd >= 2:
+            local_agg = tree.fold_ring(
+                local_deep,
+                tuple(F.pad(g, (rrd,) * (2 * dim)) for g in grids[deep]),
+                corner, size, 1 << deep, eps_sq, radius, row0=0,
+                rows=1 << deep)
+        g_pad = F.pad(torch.stack(grids[deep][:dim + 1], -1),
+                      (0, 0) + (rin,) * (2 * dim))
         s_d = size / (1 << deep)
 
         def deep_rows(pos_r, ci_r, pay_r):
-            far_r = g_const * _l2p_eval(local_agg, ci_r, pos_r, corner,
-                                        size, deep)
-            near_r = g_const * _deep_near_aggregates(
-                pos_r, pay_r, g3_pad, ci_r, eps_sq, s_d, rr=rin)
+            far_r = g_const * tree.l2p_eval(local_agg, ci_r, pos_r, corner,
+                                            size, deep)
+            near_r = g_const * tree.deep_near_aggregates(
+                pos_r, pay_r, g_pad, ci_r, eps_sq, s_d, rr=rin)
             return far_r, near_r
 
         rows_d = None
-        dcap = _deep_rows_cap(n)
+        dcap = tree.deep_rows_cap(n)
         if tile_levels and dcap < n:
             # Rows the tiles refine discard the deep rows' output, so only
             # b_par & ~refined rows run them (refined equals this cand).
-            tid_d, tile_slot_d, _ = _tile_select(
+            tid_d, tile_slot_d, _ = tree.tile_select(
                 ci_f, b_par, deep, tile_size, tile_count, radius)
             cand = (tile_slot_d[tid_d] < tile_count) & b_par
-            sidx, n_need = _compact_indices(b_par & ~cand, dcap)
-            n_need = profiling.host_read(n_need, "deep_rows")
-            _count_rows("deep", n_need, dcap, n)
-            if n_need <= dcap:
-                valid = sidx < n
-                sd = torch.clamp(sidx, max=n - 1)
+            rows = _compact_rows(b_par & ~cand, dcap, "deep")
+            if rows is not None:
+                sd, valid = rows
                 rows_d = _scatter_rows(n, torch.where(valid, sd, n),
                                        *deep_rows(pos[sd], ci_f[sd],
-                                                  payload[sd, :3]))
+                                                  payload[sd, :dim + 1]))
         if rows_d is None:
-            rows_d = deep_rows(pos, ci_f, payload[:, :3])
+            rows_d = deep_rows(pos, ci_f, payload[:, :dim + 1])
         far = torch.where(b_par[:, None], rows_d[0], far)
         near = torch.where(b_par[:, None], rows_d[1], near)
     if tile_levels:
@@ -1283,30 +1318,40 @@ def _deep_chain(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
 def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
                       near_cap: int, radius: int, use_kernels: bool = False,
                       deep_levels: int = 0, tile_levels: int = 0,
-                      tile_size: int = 32, tile_count: int = 8):
-    """The tree-code force evaluation (the JAX package's `_bh_accelerations`).
-    With use_kernels, the near field is K3 and the outlier couplings are K1
-    (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor those
-    wrappers run their plain versions. use_kernels=False runs the plain
-    versions on any device. deep_levels > levels turns on the deep-overflow
-    chain (`_deep_chain`), tile_levels > 0 its hot-zone tiles.
+                      tile_size: int = 32, tile_count: int = 8,
+                      nf_sparse: bool = False):
+    """The tree-code force evaluation, the quadtree's for a 2D `pos` and the
+    octree's for a 3D one (the JAX package's `_bh_accelerations` and
+    `_bh3_accelerations`): each stage is that tree's (`_stages`). With
+    use_kernels, the near field is K3 (K7 in 3D) and the outlier couplings
+    are K1 (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor
+    those wrappers run their plain versions. use_kernels=False runs the
+    plain versions on any device; the octree's M2L takes its kernel on any
+    CUDA tensor. deep_levels > levels turns on the deep-overflow chain
+    (`_deep_chain`), tile_levels > 0 its hot-zone tiles, and nf_sparse
+    (3D, with the deep chain) the sparse near field in place of the bucket
+    grid.
 
     Its stages are the spans `tree.couplings`, `tree.pyramid`,
-    `tree.downward`, `tree.near` (with the deep path's targets),
-    `tree.deep`, `tree.tiles` and `tree.assemble`."""
+    `tree.downward`, `tree.near` (with the deep path's targets and the
+    sparse near field), `tree.deep`, `tree.tiles` and `tree.assemble`; in
+    the octree each M2L level is `tree.m2l` inside its stage."""
+    dim = pos.shape[1]
+    tree = _stages(dim)
     with profiling.span("tree.couplings"):
         ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
             pos, mass, eps_sq, g_const, use_kernels)
 
     tree_mass = ext["tree_mass"]          # the tree sees only the bulk
+    bulk_pos = ext["bulk_pos"]
     deep = deep_levels if deep_levels > levels else 0
     res = 1 << levels
     with profiling.span("tree.pyramid"):
-        grids, corner, size, ci_f, flat_f = _build_pyramid(
-            ext["bulk_pos"], tree_mass, deep or levels, synth_quad=bool(deep))
+        grids, corner, size, ci_f, flat_f = tree.build_pyramid(
+            bulk_pos, tree_mass, deep or levels, synth_quad=bool(deep))
         if deep:
             ci = ci_f >> (deep - levels)           # bucket-level cell indices
-            flat = ci[:, 0] * res + ci[:, 1]
+            flat = _flat_ids(ci, res)
         else:
             ci, flat = ci_f, flat_f
 
@@ -1314,25 +1359,31 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
     with profiling.span("tree.downward"):
         local = None
         for lv in range(2, levels + 1):
-            terms = _m2l_level(grids[lv], corner, size, eps_sq, radius)
+            terms = tree.m2l_level(grids[lv], corner, size, eps_sq, radius)
             if local is None:
                 local = terms
             else:
-                up = _l2l_upsample(local, size / (1 << lv))
+                up = tree.l2l_upsample(local, size / (1 << lv))
                 local = tuple(u + t for u, t in zip(up, terms))
-        far = g_const * _l2p_eval(local, ci, pos, corner, size, levels)
+        far = g_const * tree.l2p_eval(local, ci, pos, corner, size, levels)
     with profiling.span("tree.near"):
-        flat_nf = _outlier_flat_ids(flat, ext["is_out"], res * res)
-        near, _ = _near_field_buckets(
-            pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const, near_cap,
-            radius, use_kernels=use_kernels, skip_residual=bool(deep))
+        flat_nf = _outlier_flat_ids(flat, ext["is_out"], res ** dim)
         if deep:
-            b_par = _deep_targets(flat_nf, flat, ext["is_out"], res,
-                                  near_cap, radius)
+            b_par, hot = tree.deep_targets(flat_nf, flat, ext["is_out"], res,
+                                           near_cap, radius)
+        if deep and nf_sparse:
+            near, b_par = tree.sparse_near_field(
+                pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
+                ext["is_out"], eps_sq, g_const, radius)
+        else:
+            near, _ = _near_field_buckets(
+                pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const,
+                near_cap, radius, use_kernels=use_kernels,
+                skip_residual=bool(deep))
     if deep:
         far, near = _deep_chain(
-            pos, ext["bulk_pos"], tree_mass, grids, local, corner, size,
-            ci_f, b_par, far, near, levels, deep, eps_sq, g_const, radius,
+            tree, pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
+            b_par, far, near, levels, deep, eps_sq, g_const, radius,
             tile_levels, tile_size, tile_count)
     with profiling.span("tree.assemble"):
         return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
@@ -1357,9 +1408,66 @@ def _near_overflow(pos: torch.Tensor, mass: torch.Tensor,
 
 def bh_near_overflow(pos: torch.Tensor, mass: torch.Tensor,
                      config: SimConfig) -> int:
-    """Bulk particles beyond the 2D near-field bucket cap (see
-    `_near_overflow`)."""
-    return _near_overflow(pos, mass, _resolve_levels(config, pos.shape[0]))
+    """Bulk particles beyond the near-field bucket cap of the tree for
+    `pos`'s dimension (see `_near_overflow`)."""
+    levels = _stages(pos.shape[1]).resolve_levels(config, pos.shape[0])
+    return _near_overflow(pos, mass, levels)
+
+
+def resolve_tree_for_state(pos, mass, config: SimConfig) -> SimConfig:
+    """Pin the tree's 'auto' choices from the state, as the JAX package's
+    `resolve_config_for_state` does once it has picked the tree: where the
+    near-field overflow (`bh_near_overflow`) exceeds the exact residual's
+    capacity, the scene is too clustered for the buckets alone, so this
+    warns (RuntimeWarning) and turns on the deep-overflow chain and its
+    tiles (bh_deep_levels=-1); then it pins bh_nf_sparse
+    (`_resolve_nf_sparse`)."""
+    over = bh_near_overflow(pos, mass, config)
+    if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
+        warnings.warn(
+            f"auto force backend: near-field overflow {over} exceeds the "
+            f"exact-residual capacity {_OVERFLOW_CAP}; enabling the "
+            f"deep-overflow multipole chain + tile refinement (tree-PM "
+            f"regime: forces inside ultra-dense cells are smoothed at the "
+            f"deep/tile-grid scale). Set force_backend explicitly to "
+            f"override.", RuntimeWarning)
+        # bh_tile_levels defaults to -1 (on with the deep chain); an
+        # explicit 0 keeps tiles off.
+        config = config.replace(bh_deep_levels=-1)
+    return _resolve_nf_sparse(pos, mass, config)
+
+
+def check_tree_capacity(pos, mass, config: SimConfig, when: str) -> bool:
+    """With the deep chain off: whether the near-field overflow exceeds the
+    exact residual's capacity (excess particles get no near-field force) on
+    `when` (the state's name in the warning); warns (RuntimeWarning) where
+    it does."""
+    over = bh_near_overflow(pos, mass, config)
+    if over <= _OVERFLOW_CAP:
+        return False
+    warnings.warn(
+        f"BH near-field overflow {over} exceeds the residual "
+        f"capacity {_OVERFLOW_CAP} on {when}; excess particles "
+        f"get no near-field force. Set bh_deep_levels=-1 (the "
+        f"deep-overflow chain), or use force_backend='cuda' for "
+        f"this scene.", RuntimeWarning)
+    return True
+
+
+def _resolve_nf_sparse(pos, mass, config: SimConfig) -> SimConfig:
+    """Pin bh_nf_sparse = -1 (auto) to 0 or 1, as the JAX package's
+    `_resolve_nf_sparse` does: 0 in 2D, and 0 in 3D whenever the deep chain
+    is off; with the 3D deep chain on, 1 when the bucket-tier targets
+    (`bh3_bucket_tier_count`) fit half the sparse pass's capacity."""
+    if config.bh_nf_sparse != -1:
+        return config
+    tree = _stages(pos.shape[1])
+    if tree.sparse_near_field is None or not tree.resolve_deep_levels(
+            config, tree.resolve_levels(config, pos.shape[0])):
+        return config.replace(bh_nf_sparse=0)
+    count = tree.bucket_tier_count(pos, mass, config)
+    return config.replace(
+        bh_nf_sparse=1 if count <= tree.nf_sparse_cap // 2 else 0)
 
 
 def _resolve_levels(config: SimConfig, n: int) -> int:
@@ -1378,8 +1486,8 @@ def _resolve_deep_levels(config: SimConfig, levels: int) -> int:
     """Deep-overflow chain depth: 0 disables; > 0 is explicit; -1 (auto)
     descends 2 levels past the buckets (16x the per-cell resolution),
     capped at `_MAX_DEEP_2D` (an 8192^2 moment grid). A depth at or above
-    the bucket level disables it. `forces.resolve_config_for_state` turns
-    auto on only for scenes whose overflow exceeds the residual's cap."""
+    the bucket level disables it. `resolve_tree_for_state` turns auto on
+    only for scenes whose overflow exceeds the residual's cap."""
     d = config.bh_deep_levels
     if d == 0:
         return 0
@@ -1416,27 +1524,83 @@ def _resolve_radius(config: SimConfig) -> int:
     return max(2, min(5, r))
 
 
+class _Stages(NamedTuple):
+    """One tree's stage math, row caps and resolvers: what the pipeline
+    (`_bh_accelerations`, `_deep_chain`, `_tile_eval`, `bh_accelerations`
+    and the state probes) calls for one dimension."""
+    build_pyramid: Callable
+    m2l_level: Callable
+    l2l_upsample: Callable
+    l2p_eval: Callable
+    moment_payload: Callable
+    deep_targets: Callable            # -> (b_par, hot cells; None in 2D)
+    fold_ring: Callable
+    deep_near_aggregates: Callable
+    tile_select: Callable
+    tile_src_mask: Callable
+    tile_scatter: Callable
+    tile_chain: Callable
+    tile_apply: Callable
+    tile_windows: Callable
+    deep_rows_cap: Callable
+    scatter_cap: Callable
+    refined_cap: Callable
+    resolve_levels: Callable
+    resolve_radius: Callable
+    resolve_deep_levels: Callable
+    resolve_tile_params: Callable
+    # Whether the deep chain first reads if any target takes it.
+    reads_deep_targets: bool
+    # The sparse near field (3D only; None in 2D), its pin's count and cap.
+    sparse_near_field: Optional[Callable]
+    bucket_tier_count: Optional[Callable]
+    nf_sparse_cap: int
+
+
+def _stages(dim: int) -> _Stages:
+    """The `dim`-D tree's stages: the quadtree's from this module, the
+    octree's from `physics/barneshut3d.py`. Built at each call from the
+    modules' globals, so a patched stage or cap takes effect."""
+    if dim == 2:
+        return _Stages(
+            _build_pyramid, _m2l_level, _l2l_upsample, _l2p_eval,
+            _moment_payload, lambda *a: (_deep_targets(*a), None),
+            _fold_aggregate_ring, _deep_near_aggregates, _tile_select,
+            _tile_src_mask, _tile_scatter, _tile_chain, _tile_apply,
+            _tile_windows, _deep_rows_cap, _scatter_cap, _refined_cap,
+            _resolve_levels, _resolve_radius, _resolve_deep_levels,
+            _resolve_tile_params, reads_deep_targets=False,
+            sparse_near_field=None, bucket_tier_count=None, nf_sparse_cap=0)
+    from nbodysim_tpu_torch.physics import barneshut3d as b3
+
+    return _Stages(
+        b3._build_pyramid3, b3._m2l_level3, b3._l2l_upsample3, b3._l2p_eval3,
+        b3._moment_payload3, b3._deep_targets3, b3._fold_aggregate_ring3,
+        b3._deep_near_aggregates3, b3._tile_select3, b3._tile_src_mask3,
+        b3._tile_scatter3, b3._tile_chain3, b3._tile_apply3,
+        b3._tile_windows3, b3._deep_rows_cap3, b3._scatter_cap3,
+        b3._refined_cap3, b3._resolve_levels3, b3._resolve_radius3,
+        b3._resolve_deep_levels3, b3._resolve_tile_params3,
+        reads_deep_targets=True, sparse_near_field=b3._sparse_near_field3,
+        bucket_tier_count=b3.bh3_bucket_tier_count,
+        nf_sparse_cap=b3._NF_SPARSE_CAP)
+
+
 def bh_accelerations(pos: torch.Tensor, mass: torch.Tensor,
                      config: SimConfig, *,
                      use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """Approximate softened accelerations via the stencil FMM tree code.
-
-    dim=2 runs this quadtree pyramid; dim=3 dispatches to the octree FMM
-    (`physics/barneshut3d.py`), as the JAX package does.
-    use_kernels (default: the tensors lie on a CUDA device) routes the
-    near field and the outlier couplings to K3 (K7 in 3D), K1 and K4;
-    False runs the same tree code through their plain versions (the
-    reference on the card). It is an internal switch, not a configuration
-    field."""
-    if pos.shape[1] == 3:
-        from nbodysim_tpu_torch.physics.barneshut3d import bh3_accelerations
-
-        return bh3_accelerations(pos, mass, config, use_kernels=use_kernels)
-    n = pos.shape[0]
-    levels = _resolve_levels(config, n)
-    deep = _resolve_deep_levels(config, levels)
-    radius = _resolve_radius(config)
-    tk, tt, tc = _resolve_tile_params(config, deep, radius)
+    """Approximate softened accelerations via the stencil FMM tree code:
+    the quadtree for a 2D `pos`, the octree for a 3D one, as the JAX
+    package dispatches. use_kernels (default: the tensors lie on a CUDA
+    device) routes the near field and the outlier couplings to K3 (K7 in
+    3D), K1 and K4; False runs the same tree code through their plain
+    versions (the reference on the card). It is an internal switch, not a
+    configuration field."""
+    tree = _stages(pos.shape[1])
+    levels = tree.resolve_levels(config, pos.shape[0])
+    deep = tree.resolve_deep_levels(config, levels)
+    radius = tree.resolve_radius(config)
+    tk, tt, tc = tree.resolve_tile_params(config, deep, radius)
     if use_kernels is None:
         # The JAX package's `_nf_use_pallas` (Pallas on the TPU).
         use_kernels = pos.device.type == "cuda"
@@ -1444,4 +1608,6 @@ def bh_accelerations(pos: torch.Tensor, mass: torch.Tensor,
         pos, mass, levels=levels, eps_sq=float(config.eps_sq),
         g_const=float(config.g_const), near_cap=NEAR_CAP, radius=radius,
         use_kernels=use_kernels, deep_levels=deep, tile_levels=tk,
-        tile_size=tt, tile_count=tc)
+        tile_size=tt, tile_count=tc,
+        nf_sparse=(bool(deep) and config.bh_nf_sparse == 1
+                   and tree.sparse_near_field is not None))

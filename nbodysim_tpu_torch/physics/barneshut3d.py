@@ -1,8 +1,11 @@
-"""The 3D tree code: the octree FMM (port of
-`nbodysim_tpu.physics.barneshut3d`).
+"""The octree's stages: the 3D tree code's stage math, row caps and
+resolvers (port of `nbodysim_tpu.physics.barneshut3d`).
 
-The quadtree code of `physics/barneshut.py` taken to dim=3; the JAX module's
-docstring gives the design and the derivative formulas:
+The force evaluation itself is the one pipeline of `physics/barneshut.py`
+(`bh_accelerations`), which takes these stages for a 3D state; the
+bucket grid, its residual, the exact couplings and the row compactions
+are that module's, generic over dim. The JAX module's docstring gives the
+design and the derivative formulas:
 
   upward (M2M):  one [N, 10]-payload `index_add_` of the raw moments
                  (m, m r_i, m r_i r_j) into the finest 2^L x 2^L x 2^L grid,
@@ -19,22 +22,14 @@ docstring gives the design and the derivative formulas:
                  [19, N] gather per particle and a second-order Taylor
                  evaluation.
   near field:    the (2R-1)^3 finest-cell neighbourhood particle-particle on
-                 a dense bucket grid [r, r, r, K] (`NEAR_CAP` slots): K7
+                 the shared bucket grid [r, r, r, K] (`NEAR_CAP` slots): K7
                  (`kernels/nearfield.py`) on the card; cells holding more
                  than K particles spill into the exact near-masked residual.
-                 The bucket grid, gather and residual are the 2D module's,
-                 generic over dim.
-  extraction:    heavy bodies and the most distant outliers leave the tree
-                 and get exact forces (outliers <- all through K1, bulk <-
-                 outliers through K4), shared with 2D.
-  deep chain:    with `bh_deep_levels != 0` (switched on by
-                 `forces.resolve_config_for_state` where the buckets overflow
-                 past the residual's cap) the synthesized pyramid and the
-                 downward pass continue past the bucket level; targets near
-                 an overflowing cell take the deep level's local expansion
-                 plus smoothed 3 x 3 x 3 cell aggregates, and inside the T
-                 hottest tiles the chain continues k sub-levels finer
-                 (`_tile_refine3`). It skips the residual. With
+  deep chain:    the pipeline's, with the octree's stages: the synthesized
+                 pyramid (`_pool2x3`), the deep targets and hot cells
+                 (`_deep_targets3`), the 3^3 aggregates, and the tiles
+                 (`_tile_select3` .. `_tile_apply3`, windows gathered a
+                 channel at a time by `_tile_windows3`). With
                  `bh_nf_sparse=1` the few bucket-tier targets get an exact
                  cell-masked pass instead of the dense bucket grid
                  (`_sparse_near_field3`).
@@ -81,10 +76,10 @@ from nbodysim_tpu_torch.config import SimConfig
 from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.m2l3 import m2l3
 from nbodysim_tpu_torch.physics.barneshut import (
-    _DEEP_SMOOTH, NEAR_CAP, _assemble, _bounding_box, _cell_ids,
-    _compact_indices, _count_rows, _exact_couplings, _extract_heavy_outliers,
-    _halo_cap, _iota, _near_field_buckets, _near_masked_blocked,
-    _near_overflow, _outlier_flat_ids, _scatter_rows)
+    _DEEP_SMOOTH, NEAR_CAP, _bounding_box, _cell_ids, _compact_indices,
+    _count_rows, _extract_heavy_outliers, _halo_cap, _iota,
+    _near_masked_blocked, _outlier_flat_ids, bh_accelerations,
+    bh_near_overflow)
 
 _MAX_LEVELS_3D = 7   # 128^3 cells; the JAX package's cap
 _MAX_DEEP_3D = 8     # a 256^3 deep grid: 671 MB for its 10 moment channels
@@ -704,56 +699,6 @@ def _tile_apply3(pos, payload, bulk_pos, ci_f, b_par, local_w, g4k,
     return refined, torch.stack(ev[:3], -1), near_ref
 
 
-def _tile_eval3(pos, payload, bulk_pos, ci_f, b_par, local_w,
-                tid, tile_slot, orig, corner, size, deep: int, radius: int,
-                eps_sq, k: int, t: int, T: int):
-    """Per-tile chain and refined per-particle evaluation, given the window
-    slice of the level-D locals. The scatter takes only the rows that can
-    reach a selected window, and the apply only the refined targets,
-    each compacted to a fixed capacity when the count fits it (a host
-    sync each, `host_read`), else over all rows; both give the same
-    result. The counters `tree.rows_needed.scatter` / `.apply` and
-    `tree.rows_computed.*` keep both counts."""
-    n = pos.shape[0]
-    geo = (corner, size, deep, radius, k, t, T)
-    s_cap = _scatter_cap3(n)
-    g4k = None
-    if s_cap < n:
-        sidx_s, n_src = _compact_indices(
-            _tile_src_mask3(ci_f, tile_slot, deep, radius, t, T), s_cap)
-        n_src = profiling.host_read(n_src, "scatter_rows")
-        _count_rows("scatter", n_src, s_cap, n)
-        if n_src <= s_cap:
-            valid_s = sidx_s < n
-            ss = torch.clamp(sidx_s, max=n - 1)
-            g4k = _tile_scatter3(
-                torch.where(valid_s[:, None], payload[ss], 0.0),
-                bulk_pos[ss], ci_f[ss], tile_slot, orig, *geo,
-                src_mask=valid_s)
-    if g4k is None:
-        g4k = _tile_scatter3(payload, bulk_pos, ci_f, tile_slot, orig, *geo)
-    local_w = _tile_chain3(local_w, g4k, orig, corner, size, deep, radius,
-                           eps_sq, k, t, T)
-
-    cap = _refined_cap3(n)
-    if cap < n:
-        sidx, n_cand = _compact_indices((tile_slot[tid] < T) & b_par, cap)
-        n_cand = profiling.host_read(n_cand, "apply_rows")
-        _count_rows("apply", n_cand, cap, n)
-        if n_cand <= cap:
-            valid = sidx < n
-            si = torch.clamp(sidx, max=n - 1)
-            r_s, far_s, near_s = _tile_apply3(
-                pos[si], payload[si], bulk_pos[si], ci_f[si],
-                b_par[si] & valid, local_w, g4k, tile_slot, orig,
-                corner, size, deep, radius, eps_sq, k, t, T)
-            return tuple(_scatter_rows(
-                n, torch.where(valid & r_s, si, n), r_s, far_s, near_s))
-    return _tile_apply3(pos, payload, bulk_pos, ci_f, b_par, local_w, g4k,
-                        tile_slot, orig, corner, size, deep, radius, eps_sq,
-                        k, t, T)
-
-
 def _tile_windows3(local_deep, orig, t: int, radius: int):
     """Each tile's window [T, W, W, W, 19] of the level-D locals, zero
     beyond the grid: one gather a channel, no host sync for the origins
@@ -764,23 +709,6 @@ def _tile_windows3(local_deep, orig, t: int, radius: int):
     ix, iy, iz = (orig[:, a, None] + H + span for a in range(3))   # [T, W]
     idx = (ix[:, :, None, None], iy[:, None, :, None], iz[:, None, None, :])
     return torch.stack([F.pad(g, (H,) * 6)[idx] for g in local_deep], -1)
-
-
-def _tile_refine3(pos, payload, bulk_pos, ci_f, b_par, local_deep,
-                  corner, size, deep: int, radius: int, eps_sq,
-                  k: int, t: int, T: int):
-    """Hot-zone sub-box refinement: continue the deep chain k more levels
-    inside the T hottest t^3-cell tiles of the deepest level, so the
-    aggregates' smoothing scale drops 2^k where the targets crowd (what
-    lets clustered 3D scenes keep tree-speed evals with core smoothing
-    finer than the 256^3 global deep grid). Targets whose home tile is not
-    selected keep the deep path. Returns (refined [N] bool, far_ref [N, 3],
-    near_ref [N, 3]), unscaled by g_const and garbage where ~refined."""
-    tid, tile_slot, orig = _tile_select3(ci_f, b_par, deep, t, T, radius)
-    local_w = _tile_windows3(local_deep, orig, t, radius)
-    return _tile_eval3(pos, payload, bulk_pos, ci_f, b_par, local_w,
-                       tid, tile_slot, orig, corner, size, deep, radius,
-                       eps_sq, k=k, t=t, T=T)
 
 
 def _sparse_near_field3(pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
@@ -829,152 +757,6 @@ def _sparse_near_field3(pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
             block)
     rank = torch.cumsum(cand, 0) - 1
     return near, b_par | (cand & (rank >= cap))
-
-
-def _deep_chain3(pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f,
-                 b_par, far, near, levels: int, deep: int, eps_sq: float,
-                 g_const: float, radius: int, tile_levels: int,
-                 tile_size: int, tile_count: int):
-    """The deep branch of `_bh3_accelerations`: continue the downward pass
-    from the bucket level's locals to `deep`, and give the deep-path
-    targets (b_par) the deep L2P against the ring-folded locals plus the
-    inner 3^3 smoothed aggregates (the span `tree.deep`), then the tile
-    refinement (`tree.tiles`). Returns the overridden (far, near), scaled
-    by g_const. Without a deep-path target (no overflowing cell) nothing
-    changes, and nothing runs (one host sync, `host_read.deep_targets`)."""
-    n = pos.shape[0]
-    with profiling.span("tree.deep"):
-        if not profiling.host_read(b_par.any(), "deep_targets"):
-            return far, near
-        for lv in range(levels + 1, deep + 1):
-            terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
-            up = _l2l_upsample3(local, size / (1 << lv))
-            local = tuple(u + t for u, t in zip(up, terms))
-        local_deep = local
-
-        payload = _moment_payload3(pos, tree_mass)
-        rrd = radius - 1
-        rin = min(rrd, 1)    # inner aggregate window; the shell folds in L2P
-        # The tiles must see the UN-folded local_deep: their sub-level chain
-        # re-decomposes the window the fold covers. At R = 2 the fold is a
-        # no-op: its padded 10-channel window (7 GB at 256^3) is not built.
-        local_agg = local_deep
-        if rrd >= 2:
-            local_agg = _fold_aggregate_ring3(
-                local_deep, tuple(F.pad(g, (rrd,) * 6) for g in grids[deep]),
-                corner, size, 1 << deep, eps_sq, radius, row0=0,
-                rows=1 << deep)
-        g4_pad = F.pad(torch.stack(grids[deep][:4], -1), (0, 0) + (rin,) * 6)
-        s_d = size / (1 << deep)
-
-        def deep_rows(pos_r, ci_r, pay_r):
-            far_r = g_const * _l2p_eval3(local_agg, ci_r, pos_r, corner, size,
-                                         deep)
-            near_r = g_const * _deep_near_aggregates3(
-                pos_r, pay_r, g4_pad, ci_r, eps_sq, s_d, rr=rin)
-            return far_r, near_r
-
-        rows_d = None
-        dcap = _deep_rows_cap3(n)
-        if tile_levels and dcap < n:
-            # Rows the tiles refine discard the deep rows' output, so only
-            # b_par & ~refined rows run them (refined equals this cand).
-            tid_d, tile_slot_d, _ = _tile_select3(
-                ci_f, b_par, deep, tile_size, tile_count, radius)
-            cand = (tile_slot_d[tid_d] < tile_count) & b_par
-            sidx, n_need = _compact_indices(b_par & ~cand, dcap)
-            n_need = profiling.host_read(n_need, "deep_rows")
-            _count_rows("deep", n_need, dcap, n)
-            if n_need <= dcap:
-                valid = sidx < n
-                sd = torch.clamp(sidx, max=n - 1)
-                rows_d = _scatter_rows(n, torch.where(valid, sd, n),
-                                       *deep_rows(pos[sd], ci_f[sd],
-                                                  payload[sd, :4]))
-        if rows_d is None:
-            rows_d = deep_rows(pos, ci_f, payload[:, :4])
-        far = torch.where(b_par[:, None], rows_d[0], far)
-        near = torch.where(b_par[:, None], rows_d[1], near)
-
-    if tile_levels:
-        with profiling.span("tree.tiles"):
-            refined, far_ref, near_ref = _tile_refine3(
-                pos, payload, bulk_pos, ci_f, b_par, local_deep, corner, size,
-                deep, radius, eps_sq, k=tile_levels, t=tile_size,
-                T=tile_count)
-            sel = refined[:, None]
-            far = torch.where(sel, g_const * far_ref, far)
-            near = torch.where(sel, g_const * near_ref, near)
-    return far, near
-
-
-def _bh3_accelerations(pos, mass, levels: int, eps_sq: float,
-                       g_const: float, near_cap: int, radius: int,
-                       use_kernels: bool = False, deep_levels: int = 0,
-                       tile_levels: int = 0, tile_size: int = 8,
-                       tile_count: int = 8, nf_sparse: bool = False):
-    """The octree force evaluation (the JAX package's `_bh3_accelerations`).
-    With use_kernels, the near field is K7 and the outlier couplings are K1
-    (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor those
-    wrappers run their plain versions. use_kernels=False runs their plain
-    versions on any device; the M2L takes its kernel on any CUDA tensor. deep_levels > levels turns on the deep-overflow
-    chain (`_deep_chain3`), tile_levels > 0 its hot-zone tiles, and
-    nf_sparse (with the deep chain) the sparse near field in place of the
-    bucket grid and K7.
-
-    Its stages are the 2D tree's spans: `tree.couplings`, `tree.pyramid`,
-    `tree.downward`, `tree.near` (with the deep path's targets and the
-    sparse near field), `tree.deep`, `tree.tiles` and `tree.assemble`;
-    each M2L level is `tree.m2l` inside its stage."""
-    with profiling.span("tree.couplings"):
-        ext, acc_heavy, acc_out, acc_from_out = _exact_couplings(
-            pos, mass, eps_sq, g_const, use_kernels)
-
-    tree_mass = ext["tree_mass"]          # the tree sees only the bulk
-    bulk_pos = ext["bulk_pos"]
-    deep = deep_levels if deep_levels > levels else 0
-    res = 1 << levels
-    with profiling.span("tree.pyramid"):
-        grids, corner, size, ci_f, flat_f = _build_pyramid3(
-            bulk_pos, tree_mass, deep or levels, synth_quad=bool(deep))
-        if deep:
-            ci = ci_f >> (deep - levels)           # bucket-level cell indices
-            flat = (ci[:, 0] * res + ci[:, 1]) * res + ci[:, 2]
-        else:
-            ci, flat = ci_f, flat_f
-
-    # Downward pass: M2L at each level + L2L to the next.
-    with profiling.span("tree.downward"):
-        local = None
-        for lv in range(2, levels + 1):
-            terms = _m2l_level3(grids[lv], corner, size, eps_sq, radius)
-            if local is None:
-                local = terms
-            else:
-                up = _l2l_upsample3(local, size / (1 << lv))
-                local = tuple(u + t for u, t in zip(up, terms))
-        far = g_const * _l2p_eval3(local, ci, pos, corner, size, levels)
-    with profiling.span("tree.near"):
-        flat_nf = _outlier_flat_ids(flat, ext["is_out"], res ** 3)
-        if deep:
-            b_par, hot = _deep_targets3(flat_nf, flat, ext["is_out"], res,
-                                        near_cap, radius)
-        if deep and nf_sparse:
-            near, b_par = _sparse_near_field3(
-                pos, bulk_pos, tree_mass, ci, flat, hot, b_par,
-                ext["is_out"], eps_sq, g_const, radius)
-        else:
-            near, _ = _near_field_buckets(
-                pos, tree_mass, ci, flat_nf, levels, eps_sq, g_const,
-                near_cap, radius, use_kernels=use_kernels,
-                skip_residual=bool(deep))
-    if deep:
-        far, near = _deep_chain3(
-            pos, bulk_pos, tree_mass, grids, local, corner, size, ci_f, b_par,
-            far, near, levels, deep, eps_sq, g_const, radius, tile_levels,
-            tile_size, tile_count)
-    with profiling.span("tree.assemble"):
-        return _assemble(ext, far, near, acc_heavy, acc_out, acc_from_out)
 
 
 def _resolve_levels3(config: SimConfig, n: int) -> int:
@@ -1033,40 +815,22 @@ def _resolve_tile_params3(config: SimConfig, deep: int,
 def bh3_accelerations(pos: torch.Tensor, mass: torch.Tensor,
                       config: SimConfig, *,
                       use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """Approximate softened accelerations via the 3D octree FMM.
-
-    use_kernels (default: the tensors lie on a CUDA device) routes the
-    near field and the outlier couplings to K7, K1 and K4; False runs the
-    same tree code through their plain versions (the reference on the
-    card). The M2L runs its kernel on a CUDA tensor either way."""
-    if pos.shape[1] != 3:
-        raise ValueError("bh3_accelerations is the dim=3 tree code")
-    levels = _resolve_levels3(config, pos.shape[0])
-    deep = _resolve_deep_levels3(config, levels)
-    radius = _resolve_radius3(config)
-    tk, tt, tc = _resolve_tile_params3(config, deep, radius)
-    if use_kernels is None:
-        use_kernels = pos.device.type == "cuda"
-    return _bh3_accelerations(
-        pos, mass, levels=levels, eps_sq=float(config.eps_sq),
-        g_const=float(config.g_const), near_cap=NEAR_CAP, radius=radius,
-        use_kernels=use_kernels, deep_levels=deep, tile_levels=tk,
-        tile_size=tt, tile_count=tc,
-        nf_sparse=bool(deep) and config.bh_nf_sparse == 1)
+    """The octree's accelerations under the JAX package's name: the one
+    pipeline, `barneshut.bh_accelerations`, on a 3D state."""
+    return bh_accelerations(pos, mass, config, use_kernels=use_kernels)
 
 
 def bh3_near_overflow(pos: torch.Tensor, mass: torch.Tensor,
                       config: SimConfig) -> int:
-    """Bulk particles beyond the 3D near-field bucket cap, after the same
-    heavy/outlier extraction the force path applies (no forces)."""
-    return _near_overflow(pos, mass, _resolve_levels3(config, pos.shape[0]))
+    """`barneshut.bh_near_overflow` under the JAX package's 3D name."""
+    return bh_near_overflow(pos, mass, config)
 
 
 def bh3_bucket_tier_count(pos: torch.Tensor, mass: torch.Tensor,
                           config: SimConfig) -> int:
     """Bulk particles that would take the bucket-tier near field (not the
     deep path) under the configuration's resolved deep chain; N when the
-    chain is off. `forces._resolve_nf_sparse` reads it: when nearly every
+    chain is off. `barneshut._resolve_nf_sparse` reads it: when nearly every
     target is on the deep path, the dense bucket grid is discarded work
     and the sparse near field takes its place."""
     n = pos.shape[0]

@@ -10,18 +10,16 @@ with the self/coincident term skipped (reference Quadtree.hpp:124).
     path and the reference on the card.
   * `compute_accelerations` — dispatch: the CUDA kernel K1
     (kernels/allpairs.py) or the plain version, or the tree code (`"bh"`,
-    automatic from N = 100k: the quadtree of physics/barneshut.py in 2D,
-    the octree of physics/barneshut3d.py in 3D), per `force_backend`.
+    automatic from N = 100k: physics/barneshut.py, the quadtree in 2D and
+    the octree in 3D), per `force_backend`.
 
 `resolve_config_for_state` pins 'auto' from the state, as the JAX
-package's does: past the near-field buckets' residual capacity it turns on
-the tree's deep-overflow chain (2D and 3D), and in 3D it pins the sparse
-near field (`bh_nf_sparse`) from the bucket-tier target count.
+package's does; once it has picked the tree, the tree pins its own
+choices (`barneshut.resolve_tree_for_state`).
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import Optional
 
 import torch
@@ -35,10 +33,7 @@ from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_potential_plain,
 )
 from nbodysim_tpu_torch.physics.barneshut import (
-    _OVERFLOW_CAP, bh_accelerations, bh_near_overflow)
-from nbodysim_tpu_torch.physics.barneshut3d import (
-    _NF_SPARSE_CAP, _resolve_deep_levels3, _resolve_levels3,
-    bh3_bucket_tier_count, bh3_near_overflow)
+    bh_accelerations, resolve_tree_for_state)
 
 # Exact/tree crossovers of the JAX package (forces.py:205,210).
 BH_AUTO_THRESHOLD = 100_000
@@ -111,47 +106,18 @@ def resolve_backend(config: SimConfig, n: int, dim: int,
 
 def resolve_config_for_state(pos, mass, config: SimConfig) -> SimConfig:
     """State-aware 'auto' resolution: pin the backend, and when 'auto'
-    picks the tree code, probe the near-field bucket occupancy of the
-    actual particles once (`bh_near_overflow`, `bh3_near_overflow` in 3D)
-    and pin `bh_nf_sparse` (`_resolve_nf_sparse`). Where the overflow
-    exceeds the exact residual's capacity, the scene is too clustered for
-    the buckets alone: this warns (RuntimeWarning) and turns on the
-    deep-overflow chain and its tiles (bh_deep_levels=-1), in 2D and 3D, as
+    picks the tree code, let the tree pin its own choices from the actual
+    particles (`barneshut.resolve_tree_for_state`: the deep-overflow chain
+    and its tiles where the buckets overflow past the exact residual's
+    capacity, with a RuntimeWarning, in 2D and 3D, and `bh_nf_sparse`), as
     the JAX package does. An explicit force_backend='bh' keeps the user's
     choice (with the capacity warning of `api.Simulation.check_capacity`)."""
     n, dim = pos.shape[0], pos.shape[1]
     backend = resolve_backend(config, n, dim, pos.device)
     if backend != "bh" or config.force_backend != "auto":
         return config.replace(force_backend=backend)
-    probe = bh3_near_overflow if dim == 3 else bh_near_overflow
-    over = probe(pos, mass, config)
-    if over > _OVERFLOW_CAP and config.bh_deep_levels == 0:
-        warnings.warn(
-            f"auto force backend: near-field overflow {over} exceeds the "
-            f"exact-residual capacity {_OVERFLOW_CAP}; enabling the "
-            f"deep-overflow multipole chain + tile refinement (tree-PM "
-            f"regime: forces inside ultra-dense cells are smoothed at the "
-            f"deep/tile-grid scale). Set force_backend explicitly to "
-            f"override.", RuntimeWarning)
-        # bh_tile_levels defaults to -1 (on with the deep chain); an
-        # explicit 0 keeps tiles off.
-        config = config.replace(bh_deep_levels=-1)
-    return _resolve_nf_sparse(pos, mass, config.replace(force_backend="bh"))
-
-
-def _resolve_nf_sparse(pos, mass, config: SimConfig) -> SimConfig:
-    """Pin bh_nf_sparse = -1 (auto) to 0 or 1, as the JAX package's
-    `_resolve_nf_sparse` does: 0 in 2D, and 0 in 3D whenever the deep chain
-    is off; with the 3D deep chain on, 1 when the bucket-tier targets
-    (`bh3_bucket_tier_count`) fit half the sparse pass's capacity."""
-    if config.bh_nf_sparse != -1:
-        return config
-    if pos.shape[1] != 3 or not _resolve_deep_levels3(
-            config, _resolve_levels3(config, pos.shape[0])):
-        return config.replace(bh_nf_sparse=0)
-    count = bh3_bucket_tier_count(pos, mass, config)
-    return config.replace(
-        bh_nf_sparse=1 if count <= _NF_SPARSE_CAP // 2 else 0)
+    return resolve_tree_for_state(pos, mass,
+                                  config.replace(force_backend="bh"))
 
 
 def compute_accelerations(

@@ -286,7 +286,7 @@ def test_resolve_config_for_state_agrees_in_3d(monkeypatch, kind):
     monkeypatch.setattr(jforces, "BH3_AUTO_THRESHOLD", 256)
     monkeypatch.setattr(jb, "_OVERFLOW_CAP", 64)
     monkeypatch.setattr(tforces, "BH3_AUTO_THRESHOLD", 256)
-    monkeypatch.setattr(tforces, "_OVERFLOW_CAP", 64)
+    monkeypatch.setattr(tb, "_OVERFLOW_CAP", 64)
     pos, mass = _scene(kind)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
@@ -338,16 +338,16 @@ def test_nf_sparse_resolution_matches_jax(monkeypatch):
     pos3, mass3 = as_t(p3), as_t(m3)
     cfg3 = nt.SimConfig(n=64, dim=3, force_backend="bh")
     jcfg3 = JaxConfig(n=64, dim=3, force_backend="bh")
-    assert tforces._resolve_nf_sparse(pos3, mass3, cfg3).bh_nf_sparse == 0
-    assert tforces._resolve_nf_sparse(
+    assert tb._resolve_nf_sparse(pos3, mass3, cfg3).bh_nf_sparse == 0
+    assert tb._resolve_nf_sparse(
         pos3, mass3, cfg3.replace(bh_nf_sparse=1)).bh_nf_sparse == 1
     # The deep chain on: the port's pin equals JAX's, where the bucket
     # tier fits the sparse pass (the default cap) and where it does not (a
     # cap of 16).
     for cap in (jb3._NF_SPARSE_CAP, 16):
         monkeypatch.setattr(jb3, "_NF_SPARSE_CAP", cap)
-        monkeypatch.setattr(tforces, "_NF_SPARSE_CAP", cap)
-        got = tforces._resolve_nf_sparse(
+        monkeypatch.setattr(tb3, "_NF_SPARSE_CAP", cap)
+        got = tb._resolve_nf_sparse(
             pos3, mass3, cfg3.replace(bh_deep_levels=-1)).bh_nf_sparse
         ref = jforces._resolve_nf_sparse(
             jnp.asarray(p3), jnp.asarray(m3),

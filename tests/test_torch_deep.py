@@ -586,7 +586,7 @@ def test_auto_resolution_enables_the_deep_chain(monkeypatch):
     monkeypatch.setattr(jforces, "BH_AUTO_THRESHOLD", 1024)
     monkeypatch.setattr(jb, "_OVERFLOW_CAP", 100)
     monkeypatch.setattr(tforces, "BH_AUTO_THRESHOLD", 1024)
-    monkeypatch.setattr(tforces, "_OVERFLOW_CAP", 100)
+    monkeypatch.setattr(tb, "_OVERFLOW_CAP", 100)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         jcfg = jforces.resolve_config_for_state(

@@ -135,11 +135,11 @@ def test_bh3_accelerations_with_the_deep_chain_match_jax(jax_evals, name):
     assert np.isfinite(got).all()
     _close(got, jax_evals[name])
     if name == "R2-no tiles":
-        # The same through `_bh3_accelerations` and the plain route (the
+        # The same through `_bh_accelerations` and the plain route (the
         # CPU wrappers run the plain versions: equal bit for bit).
         pos, mass = SCENE
         c = CASES["R2"]
-        plain = tb3._bh3_accelerations(
+        plain = tb._bh_accelerations(
             as_t(pos), as_t(mass), levels=c["levels"], eps_sq=EPS_SQ,
             g_const=1.0, near_cap=tb.NEAR_CAP, radius=c["radius"],
             use_kernels=False, deep_levels=c["deep"])
@@ -427,7 +427,7 @@ def test_fold_aggregate_ring3_matches_jax(radius, band):
 @pytest.mark.parametrize("compact", [False, True])
 def test_tile_scatter3_matches_jax(case, compact):
     """All rows, and the compacted source rows with their mask (as
-    `_tile_eval3` passes them)."""
+    `_tile_eval` passes them)."""
     p = _prelude(case)
     k, t, T = p.tiles
     args = [p.payload, p.bulk_pos, p.ci_f]
@@ -599,7 +599,7 @@ def test_sparse_near_field_trimmed_equals_padded(monkeypatch, src_cap):
 # -- the JAX package's contracts, held by the port -----------------------------
 
 def _port(pos, mass, **kw):
-    return as_np(tb3._bh3_accelerations(
+    return as_np(tb._bh_accelerations(
         as_t(pos), as_t(mass), eps_sq=EPS_SQ, g_const=1.0,
         near_cap=tb.NEAR_CAP, **kw))
 
@@ -732,9 +732,9 @@ def test_auto_resolution_matches_jax_on_users_scenes(monkeypatch, scene,
     for mod in (jforces, tforces):
         monkeypatch.setattr(mod, "BH3_AUTO_THRESHOLD", 1024)
     monkeypatch.setattr(jb, "_OVERFLOW_CAP", 512)
-    monkeypatch.setattr(tforces, "_OVERFLOW_CAP", 512)
+    monkeypatch.setattr(tb, "_OVERFLOW_CAP", 512)
     monkeypatch.setattr(jb3, "_NF_SPARSE_CAP", 256)
-    monkeypatch.setattr(tforces, "_NF_SPARSE_CAP", 256)
+    monkeypatch.setattr(tb3, "_NF_SPARSE_CAP", 256)
     pos, mass = _users_scenes(n)[scene]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)

@@ -180,13 +180,13 @@ def test_re_resolve_auto_enables_deep_midrun(monkeypatch):
     residual cap lowered in both packages)."""
     import nbodysim_tpu.physics.barneshut as jbh
     import nbodysim_tpu.physics.forces as jforces
-    from nbodysim_tpu_torch import api
+    from nbodysim_tpu_torch.physics import barneshut as tbh
     from nbodysim_tpu_torch.physics import forces
 
     n = 4096
     for mod in (forces, jforces):
         monkeypatch.setattr(mod, "BH_AUTO_THRESHOLD", 1024)
-    for mod in (forces, api, jbh):
+    for mod in (tbh, jbh):
         monkeypatch.setattr(mod, "_OVERFLOW_CAP", 256)
     cfg = nt.SimConfig(n=n, bh_levels=5, enable_collisions=False)
     pos, mass = _uniform_state(n, 0, 1000.0)

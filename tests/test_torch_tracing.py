@@ -11,7 +11,8 @@ its row counters equal counts taken from the compactions' own masks;
 `host_syncs` equals the `host_read` calls; the spans nest step > forces >
 tree.* (the octree's `tree.m2l` inside `tree.downward`, `tree.deep` and
 `tree.tiles`) and step > collisions > collide.*; `trace()`'s Chrome trace
-holds them beside the aten ops.
+holds them beside the aten ops; both trees' steps call the one pipeline's
+`barneshut._exact_couplings` and `barneshut._tile_refine`.
 
 On the card (marked `cuda`, skipped without one): over one step of a 2D
 deep-chain merger, and of a 3D Plummer sphere whose buckets overflow (the
@@ -82,7 +83,7 @@ def _plummer(n: int, device, **kw) -> nt.Simulation:
             "plummer", cfg, virialize=False, device=device), device=device)
 
 
-# Each tree's CPU step: the module whose compactions are spied on, its caps
+# Each tree's CPU step: the module that holds its caps and stages, the caps
 # cut so that the deep rows fit their compaction and the tile scatter and
 # apply do not, the compactions in the order the step runs them, the reads
 # of a device count, the collision pass's stage spans, the `tree.m2l` spans
@@ -189,11 +190,31 @@ def tree_step(request):
             reads.append(what)
             return read(t, what)
 
-        mp.setattr(mod, "_compact_indices", spy_compact)
+        # The tree's own compactions (the octree's sparse near field) and
+        # the pipeline's (the deep rows, the tile scatter and apply).
+        for m in {bh, mod}:
+            mp.setattr(m, "_compact_indices", spy_compact)
         mp.setattr(profiling, "host_read", spy_read)
         on, rec = _step_from(sim, state0, record=True)
     return dict(case=case, off=off, on=on, rec=rec, masks=masks,
                 reads=reads)
+
+
+@pytest.mark.parametrize("tree", sorted(TREES))
+def test_one_pipeline_serves_both_trees(monkeypatch, tree):
+    """The quadtree and the octree run the one pipeline of
+    `physics/barneshut.py`: a wrap of its `_exact_couplings` and
+    `_tile_refine` sees the calls of either tree's deep-chain step."""
+    calls = []
+    for name in ("_exact_couplings", "_tile_refine"):
+        def wrap(*a, _real=getattr(bh, name), _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(bh, name, wrap)
+    sim = TREES[tree]["sim"]()        # leapfrog: primes the forces once
+    assert sim.config.dim == (3 if tree == "plummer3d" else 2)
+    assert calls == ["_exact_couplings", "_tile_refine"]
 
 
 def test_nothing_recording_keeps_no_span():
