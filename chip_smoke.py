@@ -49,7 +49,8 @@ Phases, each printing its own lines:
                 forces (median relative error < 1e-2),
                 Simulation(SimConfig(n=1M, enable_collisions=False)) under
                 'auto' running 20 steps with K1, K3 and K4 launched exactly
-                once per step and no other kernel, and the N=131,072 disc
+                once per step, the M2L kernel once a level and no other
+                kernel, and the N=131,072 disc
                 under 'auto' resolving to the deep-overflow chain with tiles
                 (with its warning) and running 2 steps;
   8. collide  — K5 against its plain version on 2D and 3D colliding clouds
@@ -67,12 +68,19 @@ Phases, each printing its own lines:
                 during the launch; the N=4M merger under 'auto'
                 (block pass, its overflow, launches of one pass, one pass
                 timed by stage), and one force eval of its state under
-                config 5's forces (the deep chain), timed; Simulation of the
+                config 5's forces (the deep chain), timed, with the 2D M2L
+                kernel launched 14 times (levels 2-10, deep 11-12, 3 tile
+                sub-levels), and the kernel at its 4096^2 and 2048^2 levels
+                against its plain version (F and J within 1e-5, H within
+                2e-5 of the class's max |value|), timed beside its bound
+                (useful multiply-adds at 67 TFLOP/s) and the plain route
+                (cuDNN, library_ms); Simulation of the
                 N=1M merger (force_backend "cuda", collisions resolved to the
                 block pass): 1 warm-up step, then run(3) with K1 and K6
-                launched once per step and K5 at least twice, then the same
-                under config 5's forces ("bh", bh_deep_levels=-1) with K1,
-                K3, K4 and K6 once per step; one bucket pass on phase 6's
+                launched once per step, K5 at least twice and no M2L, then
+                the same under config 5's forces ("bh", bh_deep_levels=-1)
+                with K1, K3, K4 and K6 once per step and the M2L kernel
+                once a level; one bucket pass on phase 6's
                 N=1M uniform input with random velocities under 'auto';
   9. tree3d   — K7 against its plain version, as K3 in phase 7, on random
                 partially filled 3D bucket grids (rr = 1..4, eps = 0), on
@@ -100,8 +108,10 @@ Phases, each printing its own lines:
                 plain route (1e-5 * max|a|, index_add_ deterministic for
                 the comparison) and against exact K1 forces on 4096 rows
                 (median relative error < 2e-2 off the deep path, max|a| <
-                10x the exact one on it); 1 warm-up step, then run(5) with
-                K1, K3 and K4 launched exactly once per step; K1, K3 and K4
+                10x the exact one on it); the 2D M2L kernel at the deep
+                chain's 2048^2 and 1024^2 levels as in phase 8; 1 warm-up
+                step, then run(5) with K1, K3 and K4 launched exactly once
+                per step and the M2L kernel 13 times a step; K1, K3 and K4
                 at the deep path's shapes against their plain versions,
                 timed and bounded;
  11. deep3d   — Simulation(SimConfig(n=1,048,576, dim=3), scene="plummer")
@@ -140,7 +150,8 @@ Phases, each printing its own lines:
                 normal, performance and overlay modes, timed, each against
                 the CPU's frame of the same state (at most 0.1% of the
                 pixels more than 1 apart); render_rollout of 10 frames of
-                1 step into an AsyncFrameWriter with a numpy sink;
+                1 step into an AsyncFrameWriter with a numpy sink (the M2L
+                kernel 13 times a tree eval);
                 `nbodysim_tpu_torch.bench`'s default run and --config 1, 2
                 and 5 (config 5: the N=4M merger, forces only and with
                 collisions), their JSON lines printed; the drift gate
@@ -1278,6 +1289,7 @@ def main() -> None:
     from nbodysim_tpu_torch.kernels.collide import (
         allpairs_collision_deltas, collision_deltas_plain, rect_pair_deltas,
         rect_pair_deltas_plain)
+    from nbodysim_tpu_torch.kernels import m2l2 as km2
     from nbodysim_tpu_torch.kernels import m2l3 as km3
     from nbodysim_tpu_torch.kernels.collide_block import (
         block_collision_deltas, block_collision_deltas_plain,
@@ -1694,6 +1706,57 @@ def main() -> None:
             "{:.4f} ms ({})".format(*pair_bound(float(n) * n,
                                                 4.0 * n * (3 + 2))))
 
+    def m2l2_per_eval(cfg, n):
+        """The 2D M2L kernel's launches in one tree eval under `cfg`: the
+        levels 2..L, the deep chain's levels L+1..D and its tiles' k
+        sub-levels, one launch each."""
+        lv = bh._resolve_levels(cfg, n)
+        dp = bh._resolve_deep_levels(cfg, lv)
+        k = bh._resolve_tile_params(cfg, dp, bh._resolve_radius(cfg))[0]
+        return (lv - 1) + max(dp - lv, 0) + k
+
+    m2l2_rows = {}
+    m2l2_tol = {"F": 1e-5, "J": 1e-5, "H": 2e-5}      # the card tests' bounds
+    m2l2_classes = {"F": (0, 1), "J": (2, 3, 4), "H": (5, 6, 7, 8)}
+
+    def m2l2_level(phase, label, grids, corner, size, eps_sq, rad, v):
+        """The 2D M2L kernel at level v of an eval's pyramid, as the eval
+        passes it (the pyramid's channel views as one strided tensor):
+        against its plain version (each term class within `m2l2_tol` of the
+        class's max |value|), timed, bounded by its useful multiply-adds
+        (r^2 x the V-list's sources x 42) and its bytes (6 channels in, 9
+        terms out), beside the plain route (cuDNN in full f32) as the
+        library's time."""
+        r = 1 << v
+        args = (bh._channel_stack(grids[v]), corner, size, r, eps_sq, rad)
+        kw = dict(row0=0, rows=r, x0=0)
+        got = km2.m2l2(*args, **kw)
+        ref = km2.m2l2_plain(*args, **kw)
+        errs = {}
+        for cls, ts in m2l2_classes.items():
+            scale = max(float(ref[t].abs().max()) for t in ts)
+            errs[cls] = max(float((got[t] - ref[t]).abs().max())
+                            for t in ts) / scale
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        del got, ref
+        ms = time_ms(lambda: km2.m2l2(*args, **kw), 5)
+        lib_ms = time_ms(lambda: km2.m2l2_plain(*args, **kw), 2)
+        sources = len(bh._m2l_conv_taps(rad, rad, 2)[0]) // 4
+        fma = float(r) ** 2 * sources * 42
+        bnd = bound(4.0 * r ** 2 * (6 + 9), 2.0 * fma)
+        ok = finite and all(errs[c] <= m2l2_tol[c] for c in errs)
+        say(phase, f"M2L kernel, {label} level {v} ({r}^2, R={rad}, "
+            f"{sources} sources a target): term error of its class's max "
+            + ", ".join(f"{c} {e:.3e} (tol {m2l2_tol[c]:g})"
+                        for c, e in errs.items())
+            + f"; kernel {ms:.4f} ms, {fma / ms / 1e9:.4e} useful FMA/s, "
+            f"{100 * bnd[0] / ms:.1f}% of its bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}); plain route (cuDNN, full f32) {lib_ms:.4f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"M2L kernel at {r}^2 ({label}) disagrees with its "
+                f"plain version: {errs}")
+        m2l2_rows[(label, v)] = (max(errs.values()), ms, lib_ms, bnd)
+
     # -- the tree code at N = 1M ---------------------------------------------
     n1m = 1 << 20
     tcfg = SimConfig(n=n1m, enable_collisions=False)
@@ -1927,7 +1990,8 @@ def main() -> None:
     scale = float(a_plain.abs().max())
     say("tree", f"tree eval N={n1m} kernels vs plain route: max_abs_err="
         f"{err:.3e} max|a|={scale:.3e} tol={1e-5 * scale:.3e} (index_add_ "
-        f"atomics vary the pyramid's last bits) "
+        f"atomics vary the pyramid's last bits; the M2L kernel runs on "
+        f"both routes, and m2l2_level holds it to its plain version) "
         f"{'ok' if err <= 1e-5 * scale else 'FAIL'}")
     require(err <= 1e-5 * scale, "tree eval through the kernels disagrees "
             "with the plain route")
@@ -1960,7 +2024,7 @@ def main() -> None:
     others = (allpairs_collision_deltas, rect_pair_deltas,
               block_collision_deltas, bucket_stencil3)
     for c in (allpairs_accelerations, allpairs_accelerations_wide,
-              bucket_stencil) + others:
+              bucket_stencil, km2.m2l2) + others:
         c.launches = 0
     start.record()
     tsim.run(20)
@@ -1969,14 +2033,17 @@ def main() -> None:
     tree_launches = {"K1": allpairs_accelerations.launches,
                      "K3": bucket_stencil.launches,
                      "K4": allpairs_accelerations_wide.launches,
+                     "M2": km2.m2l2.launches,
                      "other": sum(c.launches for c in others)}
     tree_steps_per_s = 20 / (start.elapsed_time(end) / 1e3)
     say("tree", f"launches during run(20) at N={n1m}: {tree_launches}; "
         f"{tree_steps_per_s:.3f} steps/s (CUDA events, after 2 warm-up "
         f"steps)")
-    require(tree_launches == {"K1": 20, "K3": 20, "K4": 20, "other": 0},
+    tree_m2 = 20 * m2l2_per_eval(tsim.config, n1m)
+    require(tree_launches == {"K1": 20, "K3": 20, "K4": 20, "M2": tree_m2,
+                              "other": 0},
             f"tree kernel launches {tree_launches}, expected K1, K3 and K4 "
-            f"20 each")
+            f"20 each and the M2L kernel {tree_m2}")
     st = tsim.state
     for name in ("pos", "vel", "acc"):
         require(bool(torch.isfinite(getattr(st, name)).all()),
@@ -2362,8 +2429,10 @@ def main() -> None:
     # One force evaluation of the N = 4M merger state under config 5's
     # forces: the tree with the deep-overflow chain and tiles.
     cfg4d = SimConfig(n=n4, force_backend="bh", bh_deep_levels=-1)
+    km2.m2l2.launches = 0
     a4, deep4_first_ms = timed(lambda: bh.bh_accelerations(
         merger4.pos, merger4.mass, cfg4d))
+    m2_4m = km2.m2l2.launches
     require(bool(torch.isfinite(a4).all()), "N=4M deep eval: non-finite")
     del a4
     deep4_ms = time_ms(lambda: bh.bh_accelerations(
@@ -2376,7 +2445,20 @@ def main() -> None:
         f", bucket overflow "
         f"{bh.bh_near_overflow(merger4.pos, merger4.mass, cfg4d)}): one "
         f"eval {deep4_ms:.4f} ms (CUDA events, 3 evals after 1; the first "
-        f"took {deep4_first_ms:.4f} ms)")
+        f"took {deep4_first_ms:.4f} ms); M2L kernel launches in one eval "
+        f"{m2_4m}")
+    require(m2_4m == m2l2_per_eval(cfg4d, n4) == 14,
+            f"N=4M deep eval launched the M2L kernel {m2_4m} times, expected "
+            f"14: levels 2-{lv4}, deep {lv4 + 1}-{dp4_}, 3 tile sub-levels")
+    # The M2L kernel at the eval's two finest levels (the deep chain's
+    # 4096^2 and 2048^2 on the synthesized pyramid).
+    ext4 = bh._extract_heavy_outliers(merger4.pos, merger4.mass)
+    grids4, corner4, size4, _, _ = bh._build_pyramid(
+        ext4["bulk_pos"], ext4["tree_mass"], dp4_, synth_quad=True)
+    for v in (dp4_, dp4_ - 1):
+        m2l2_level("collide", "N=4M merger", grids4, corner4, size4,
+                   cfg4d.eps_sq, bh._resolve_radius(cfg4d), v)
+    del ext4, grids4
     del merger4
     say("collide", f"N=4M pass timed {since()}")
 
@@ -2391,7 +2473,7 @@ def main() -> None:
             f"N=1M merger force backend {msim.config.force_backend}")
     msim.run(1)  # warm-up
     torch.cuda.synchronize()
-    for c in counted:
+    for c in counted + (km2.m2l2,):
         c.launches = 0
     start.record()
     msim.run(3)
@@ -2402,7 +2484,8 @@ def main() -> None:
                        "K3": bucket_stencil.launches,
                        "K4": allpairs_accelerations_wide.launches,
                        "K5": rect_pair_deltas.launches,
-                       "K6": block_collision_deltas.launches}
+                       "K6": block_collision_deltas.launches,
+                       "M2": km2.m2l2.launches}
     merger_steps_per_s = 3 / (start.elapsed_time(end) / 1e3)
     say("collide", f"launches during run(3) of the N={n_m} merger: "
         f"{merger_launches}; {merger_steps_per_s:.4f} steps/s (CUDA events, "
@@ -2410,7 +2493,7 @@ def main() -> None:
     require(merger_launches["K1"] == 3 and merger_launches["K6"] == 3
             and merger_launches["K5"] >= 6 and merger_launches["K5"] % 2 == 0
             and merger_launches["K2"] == merger_launches["K3"]
-            == merger_launches["K4"] == 0,
+            == merger_launches["K4"] == merger_launches["M2"] == 0,
             f"merger kernel launches {merger_launches}: expected K1 and K6 "
             f"once per step, K5 at least twice")
     mst = msim.state
@@ -2448,7 +2531,7 @@ def main() -> None:
             f"bh_deep_levels {m5sim.config.bh_deep_levels}")
     m5sim.run(1)  # warm-up
     torch.cuda.synchronize()
-    for c in counted:
+    for c in counted + (km2.m2l2,):
         c.launches = 0
     start.record()
     m5sim.run(3)
@@ -2459,7 +2542,9 @@ def main() -> None:
                    "K3": bucket_stencil.launches,
                    "K4": allpairs_accelerations_wide.launches,
                    "K5": rect_pair_deltas.launches,
-                   "K6": block_collision_deltas.launches}
+                   "K6": block_collision_deltas.launches,
+                   "M2": km2.m2l2.launches}
+    m5_m2 = m2l2_per_eval(m5sim.config, n_m)
     m5_steps_per_s = 3 / (start.elapsed_time(end) / 1e3)
     say("collide", f"launches during run(3) of the N={n_m} merger under "
         f"config 5's forces: {m5_launches}; {m5_steps_per_s:.4f} steps/s "
@@ -2468,9 +2553,10 @@ def main() -> None:
         f"{bh.bh_near_overflow(m5sim.state.pos, m5sim.state.mass, m5cfg)}; "
         f"{len(caught)} warnings at init")
     require(m5_launches["K1"] == m5_launches["K3"] == m5_launches["K4"] == 3
-            and m5_launches["K6"] == 3 and m5_launches["K2"] == 0,
+            and m5_launches["K6"] == 3 and m5_launches["K2"] == 0
+            and m5_launches["M2"] == 3 * m5_m2,
             f"config 5 merger launches {m5_launches}: expected K1, K3, K4 "
-            f"and K6 once per step")
+            f"and K6 once per step, the M2L kernel {m5_m2} per step")
     for name in ("pos", "vel", "acc"):
         require(bool(torch.isfinite(getattr(m5sim.state, name)).all()),
                 f"config 5 merger path: non-finite {name}")
@@ -3044,11 +3130,12 @@ def main() -> None:
         say("deep", "eval device busy: not measured (the profiler recorded "
             "no device rows)")
 
-    # Through the kernels against the plain route. index_add_'s atomics
-    # vary the pyramid's last bits from run to run, and the synthesized
-    # quadrupoles amplify them in the tile chain; with deterministic
-    # algorithms on, index_add_ sums in a fixed order, so both routes see
-    # the same pyramid and differ only by K1, K3 and K4.
+    # Through the kernels against the plain route (the M2L kernel runs on
+    # both; m2l2_level below holds it to its plain version). index_add_'s
+    # atomics vary the pyramid's last bits from run to run, and the
+    # synthesized quadrupoles amplify them in the tile chain; with
+    # deterministic algorithms on, index_add_ sums in a fixed order, so both
+    # routes see the same pyramid and differ only by K1, K3 and K4.
     a_dk = eval_d()
     a_dp, dplain_ms = timed(lambda: bh.bh_accelerations(
         dpos, dmass, dcfg, use_kernels=False))
@@ -3100,11 +3187,16 @@ def main() -> None:
         f"10x) {'ok' if ok else 'FAIL'}")
     require(ok, "deep eval too far from the exact forces")
     del a_dk, exact_d
+    # The M2L kernel at the eval's two finest levels (the deep chain's
+    # 2048^2 and 1024^2 on the synthesized pyramid).
+    for v in (deep_d, deep_d - 1):
+        m2l2_level("deep", "N=1M disc", grids_d, corner_d, size_d, eps,
+                   rad_d, v)
 
     # The main path: 1 warm-up step, then run(5).
     dsim.run(1)
     torch.cuda.synchronize()
-    for c in counted + (bucket_stencil3,):
+    for c in counted + (bucket_stencil3, km2.m2l2):
         c.launches = 0
     start.record()
     dsim.run(5)
@@ -3116,14 +3208,17 @@ def main() -> None:
                   "K4": allpairs_accelerations_wide.launches,
                   "K5": rect_pair_deltas.launches,
                   "K6": block_collision_deltas.launches,
-                  "K7": bucket_stencil3.launches}
+                  "K7": bucket_stencil3.launches,
+                  "M2": km2.m2l2.launches}
     d_steps_per_s = 5 / (start.elapsed_time(end) / 1e3)
     say("deep", f"launches during run(5) of the N={n_d} disc: {d_launches}; "
         f"{d_steps_per_s:.4f} steps/s (CUDA events, after 1 warm-up step)")
     require(d_launches["K1"] == d_launches["K3"] == d_launches["K4"] == 5
-            and d_launches["K7"] == 0,
+            and d_launches["K7"] == 0
+            and d_launches["M2"] == 5 * m2l2_per_eval(dcfg, n_d) == 5 * 13,
             f"disc kernel launches {d_launches}: expected K1, K3 and K4 "
-            f"once per step")
+            f"once per step, the M2L kernel 13 times a step (levels "
+            f"2-{lv_d}, deep {lv_d + 1}-{deep_d}, {tk_d} tile sub-levels)")
     require(dsim.frame == 6, f"frame {dsim.frame}, expected 6")
     for name in ("pos", "vel", "acc"):
         require(bool(torch.isfinite(getattr(dsim.state, name)).all()),
@@ -3799,7 +3894,7 @@ def main() -> None:
     sink = []
     writer = AsyncFrameWriter(lambda i, f: sink.append((i, f.shape)))
     for c in (allpairs_accelerations, allpairs_accelerations_wide,
-              bucket_stencil):
+              bucket_stencil, km2.m2l2):
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3812,12 +3907,15 @@ def main() -> None:
     fps = 10 / (time.perf_counter() - t0)
     ro_launches = {"K1": allpairs_accelerations.launches,
                    "K4": allpairs_accelerations_wide.launches,
-                   "K3": bucket_stencil.launches}
+                   "K3": bucket_stencil.launches,
+                   "M2": km2.m2l2.launches}
+    ro_m2 = m2l2_per_eval(rcfg, rstate.pos.shape[0])
     say("surface", f"render_rollout N=1M disc, 10 frames of 1 step "
         f"(AsyncFrameWriter, numpy sink): {fps:.3f} frames/s (host clock, "
         f"probes and priming included); launches {ro_launches}")
     require(sink == [(i, (900, 1200, 3)) for i in range(10)]
-            and ro_launches["K1"] >= 9,
+            and ro_launches["K1"] >= 9
+            and ro_launches["M2"] == ro_m2 * ro_launches["K3"],
             f"render_rollout frames {sink[:2]}..., launches {ro_launches}")
 
     # The bench: the default run, then BASELINE configs 1, 2 and 5.
@@ -3966,6 +4064,21 @@ def main() -> None:
             "none (the port adds it; nbodysim_tpu/physics/barneshut3d.py:"
             "_m2l_conv3 leaves the M2L to XLA's conv_general_dilated)",
             pl_launches["M2L"], worst, ms, lib_ms, bnd)
+        row["library_ms"] = lib_ms
+        kernels.append(row)
+    for (label, v), (worst, ms, lib_ms, bnd) in m2l2_rows.items():
+        row = entry(
+            f"M2 m2l2 (2D deep chain, {label}: level {v}, {1 << v}^2; "
+            f"launches: "
+            + ("all levels of one eval" if label == "N=4M merger"
+               else "all levels of 5 steps")
+            + "; max_abs_err: the worst term class's error over its max; "
+            "plain_ms and library_ms: the plain route, cuDNN in full f32)",
+            "nbodysim_tpu_torch/csrc/m2l2.cu",
+            "none (the port adds it; nbodysim_tpu/physics/barneshut.py:"
+            "_m2l_conv leaves the M2L to XLA's conv_general_dilated)",
+            m2_4m if label == "N=4M merger" else d_launches["M2"], worst,
+            ms, lib_ms, bnd)
         row["library_ms"] = lib_ms
         kernels.append(row)
     for dim, (k5_launched, k5, _, vmax) in hash_k5.items():

@@ -76,6 +76,10 @@ SIGNATURES = {
                 _vp, _f, _i, _vp, _vp, _vp),
     # radius
     "nb_m2l3_table_floats": (_i,),
+    # g, its strides (batch, x, y, channel), batch, X, x0, r, row0, rows,
+    # corner, size, eps_sq, radius, out, stream
+    "nb_m2l2": (_vp, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _i, _i, _vp, _vp,
+                _f, _i, _vp, _vp),
 }
 
 

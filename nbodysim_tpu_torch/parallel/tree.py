@@ -2,7 +2,7 @@
 of `nbodysim_tpu.parallel.tree`; its module docstring gives the design).
 
 Every pyramid level's rows are banded over the 1-D mesh. Each rank runs the
-heavy stencils (the M2L convolution, the near field) on its own band only;
+heavy stencils (the M2L, the near field) on its own band only;
 the boundary halo rows move between ring neighbours (`comm.ppermute`, one
 exchange a level), and the coarse levels that cannot band are all-gathered
 and computed replicated. The cell sort, the bucket scatter, the near field
@@ -13,8 +13,8 @@ them, else the whole set sorted (a host branch on one count).
 Exactness: each pairwise and cell contribution is computed on exactly one
 rank into a full-length [N, 2] buffer, and one `psum` combines the
 disjoint pieces, so the banded result matches the single-device tree
-(`physics/barneshut.bh_accelerations`) to roundoff: the M2L convolution
-runs on a band window, `psum` adds in another order, and the scatters'
+(`physics/barneshut.bh_accelerations`) to roundoff: the M2L runs on a
+band window, `psum` adds in another order, and the scatters'
 `index_add_` sums in another order on the card.
 
 Decomposition of `physics/barneshut._bh_accelerations` across the mesh:
@@ -48,6 +48,7 @@ from nbodysim_tpu_torch.core.blocking import sorted_first_occurrence
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
+from nbodysim_tpu_torch.kernels.m2l2 import m2l2
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil, bucket_stencil_plain)
 from nbodysim_tpu_torch.parallel import comm
@@ -63,7 +64,6 @@ from nbodysim_tpu_torch.physics.barneshut import (
     _fold_aggregate_ring,
     _halo_cap,
     _l2l_upsample,
-    _m2l_conv,
     _m2l_level,
     _moment_payload,
     _near_masked_blocked,
@@ -291,12 +291,12 @@ def _banded_eval(pos, mass, pos_l, *, levels, radius, eps_sq, g_const,
     for lv in range(ls, build_levels + 1):       # banded levels
         r_l = 1 << lv
         rb_l = r_l // p_dev                      # a power of two >= p >= 3
-        # The convolution form (`_m2l_level`'s) on my rows with 2 qh halo
-        # rows a side; rb_l is even, as the parent-level view needs.
+        # `_m2l_level`'s M2L on my rows with 2 qh halo rows a side; rb_l
+        # is even, as the parent-level view needs.
         gx = _halo_window(band[lv].permute(2, 0, 1), 2 * qh, axis,
                           cols=0).permute(1, 2, 0)
-        terms = _m2l_conv(gx, corner, size, r_l, eps_sq, radius,
-                          row0=my * rb_l, rows=rb_l)
+        terms = m2l2(gx, corner, size, r_l, eps_sq, radius, row0=my * rb_l,
+                     rows=rb_l, x0=my * rb_l - 2 * qh)
         if local is None:                        # ls == 2: no coarse prefix
             local = terms
         elif lv == ls:

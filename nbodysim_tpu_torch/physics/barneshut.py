@@ -17,9 +17,11 @@ the JAX module's docstring gives the design at length:
   upward (M2M):  scatter particle mass and raw first/second moments into the
                  finest grid (`index_add_`), 2 x 2 sum-pool up the pyramid.
   M2L:           per level, the V-list (Chebyshev distance R..2R-1, parity-
-                 gated on the outer ring) as ONE parent-level convolution
-                 (`_m2l_conv`, `F.conv2d`) into p=2 local terms (F, J, H);
-                 `_m2l_stencil` is its plain reference.
+                 gated on the outer ring) into p=2 local terms (F, J, H):
+                 on the card ONE launch of the M2L kernel
+                 (`kernels/m2l2.py`, `csrc/m2l2.cu`), on the CPU ONE
+                 parent-level convolution (`_m2l_conv`, `F.conv2d`);
+                 `_m2l_stencil` is their plain reference.
   L2L / L2P:     local expansions re-centred down the pyramid, then one
                  gather per particle and a second-order Taylor evaluation.
   near field:    the (2R-1)^2 finest-cell neighbourhood particle-particle on
@@ -40,9 +42,10 @@ the JAX module's docstring gives the design at length:
                  k sub-levels finer (`_tile_refine`). It skips the residual.
 
 Differences from the JAX package, each deliberate:
-  * the M2L convolution runs in full f32 at every level, with cuDNN's TF32
-    switched off around the call (the JAX package pins HIGHEST, and drops to
-    HIGH, bf16x3, at r >= 1024; full f32 is at least as exact);
+  * the M2L runs in full f32 at every level: on the card in the M2L
+    kernel's FMA, and the convolution with cuDNN's TF32 switched off around
+    the call (the JAX package pins HIGHEST, and drops to HIGH, bf16x3, at
+    r >= 1024; full f32 is at least as exact);
   * the residual tiers, and the deep chain's row compactions, are Python
     branches on a count read from the device: one host sync each
     (`profiling.host_read`), where the JAX package uses `lax.cond`;
@@ -76,6 +79,7 @@ from nbodysim_tpu_torch.diagnostics import profiling
 from nbodysim_tpu_torch.kernels.allpairs import (
     allpairs_accelerations, allpairs_accelerations_plain,
     allpairs_accelerations_wide)
+from nbodysim_tpu_torch.kernels.m2l2 import m2l2
 from nbodysim_tpu_torch.kernels.nearfield import (
     bucket_stencil, bucket_stencil3, bucket_stencil3_plain,
     bucket_stencil_plain)
@@ -180,22 +184,41 @@ def _build_pyramid(pos, mass, levels: int, synth_quad: bool = False):
     return grids, corner, size, ci, flat
 
 
+def _channel_stack(grids):
+    """The moment grids as one [..., C] tensor: a view where they are the
+    channels of one channel-last tensor (as the pyramid and the tile chain
+    make them), else a stack."""
+    a = grids[0]
+    step, rem = divmod(grids[1].data_ptr() - a.data_ptr(), a.element_size())
+    base = a.untyped_storage().data_ptr()
+    if step > 0 and not rem and all(
+            c.shape == a.shape and c.stride() == a.stride()
+            and c.dtype == a.dtype
+            and c.untyped_storage().data_ptr() == base
+            and c.data_ptr() == a.data_ptr() + i * step * a.element_size()
+            for i, c in enumerate(grids)):
+        return a.as_strided(a.shape + (len(grids),), a.stride() + (step,))
+    return torch.stack(grids, -1)
+
+
 def _m2l_level(grids_l, corner, size, eps_sq, radius: int):
     """V-list pass at one full level -> p=2 local terms (F, J, H).
 
-    Even grids (every real level) run as the parent-level convolution
-    (`_m2l_conv`); the stencil is the reference and the odd-size path.
-    Even grids may carry leading batch axes (the deep chain's tiles), with
-    one corner per grid."""
+    Even grids (every real level) run through `kernels.m2l2.m2l2`: the
+    kernel on the card, the parent-level convolution (`_m2l_conv`) on the
+    CPU; the stencil is the reference and the odd-size path. Even grids may
+    carry leading batch axes (the deep chain's tiles), with one corner per
+    grid. Every call is the span `tree.m2l`, inside the stage that makes it
+    (`tree.downward`, `tree.deep`, `tree.tiles`)."""
     r = grids_l[0].shape[-1]
-    if r % 2 == 0 and r >= 2:
-        qh = radius - 1
-        gx = F.pad(torch.stack(grids_l, -1), (0, 0, 0, 0, 2 * qh, 2 * qh))
-        return _m2l_conv(gx, corner, size, r, eps_sq, radius, row0=0, rows=r)
-    p = 2 * radius - 1
-    window = tuple(F.pad(g, (p, p, p, p)) for g in grids_l)
-    return _m2l_stencil(window, corner, size, r, eps_sq, radius,
-                        row0=0, rows=r)
+    with profiling.span("tree.m2l"):
+        if r % 2 == 0 and r >= 2:
+            return m2l2(_channel_stack(grids_l), corner, size, r, eps_sq,
+                        radius, row0=0, rows=r, x0=0)
+        p = 2 * radius - 1
+        window = tuple(F.pad(g, (p, p, p, p)) for g in grids_l)
+        return _m2l_stencil(window, corner, size, r, eps_sq, radius,
+                            row0=0, rows=r)
 
 
 def _m2l_stencil(window, corner, size, r_full: int, eps_sq, radius: int,
@@ -434,7 +457,9 @@ def _full_f32_conv():
 
 def _m2l_conv(gx, corner, size, r_full: int, eps_sq, radius: int,
               row0: int, rows: int, r_parent: Optional[int] = None):
-    """One 2D M2L level as the parent-level convolution.
+    """One 2D M2L level as the parent-level convolution: the plain route of
+    `kernels.m2l2` (the CPU's, and the reference the kernel is held to on
+    the card).
 
     gx: [..., rows + 4(Rp-1), r_full, 6] raw-moment row window whose first
     and last 2(Rp-1) rows are halo (zeros beyond the grid); its row 0 is
@@ -1326,16 +1351,16 @@ def _bh_accelerations(pos, mass, levels: int, eps_sq: float, g_const: float,
     use_kernels, the near field is K3 (K7 in 3D) and the outlier couplings
     are K1 (outliers <- all) and K4 (bulk <- outliers); on a CPU tensor
     those wrappers run their plain versions. use_kernels=False runs the
-    plain versions on any device; the octree's M2L takes its kernel on any
-    CUDA tensor. deep_levels > levels turns on the deep-overflow chain
+    plain versions on any device; the M2L takes its kernel on any CUDA
+    tensor. deep_levels > levels turns on the deep-overflow chain
     (`_deep_chain`), tile_levels > 0 its hot-zone tiles, and nf_sparse
     (3D, with the deep chain) the sparse near field in place of the bucket
     grid.
 
     Its stages are the spans `tree.couplings`, `tree.pyramid`,
     `tree.downward`, `tree.near` (with the deep path's targets and the
-    sparse near field), `tree.deep`, `tree.tiles` and `tree.assemble`; in
-    the octree each M2L level is `tree.m2l` inside its stage."""
+    sparse near field), `tree.deep`, `tree.tiles` and `tree.assemble`;
+    each M2L level is `tree.m2l` inside its stage."""
     dim = pos.shape[1]
     tree = _stages(dim)
     with profiling.span("tree.couplings"):

@@ -23,6 +23,7 @@ from nbodysim_tpu.physics import barneshut as jb
 from nbodysim_tpu.physics import forces as jforces
 from nbodysim_tpu.physics.integrators import make_step as jax_make_step
 import nbodysim_tpu_torch as nt
+from nbodysim_tpu_torch.kernels import m2l2 as km2
 from nbodysim_tpu_torch.physics import barneshut as tb
 from nbodysim_tpu_torch.physics import barneshut3d as tb3
 from nbodysim_tpu_torch.physics import forces as tforces
@@ -123,6 +124,37 @@ def test_m2l_level_routes_even_grids_to_the_conv():
                         1.0, 3)
     for a, b in zip(got, ref):
         _close(a, b)
+
+
+@pytest.mark.parametrize("kind", ["full", "band", "band0", "tiles"])
+def test_m2l_wrapper_on_cpu_is_the_conv(kind):
+    """On a CPU tensor `kernels.m2l2.m2l2` is `_m2l_conv` on the window
+    padded with 2(R-1) zero halo rows a side, bit for bit, and launches
+    nothing: a full level (the pyramid's channel view), a banded row window
+    with its halo rows given or cut at the grid's edge, a batch of grids
+    with one corner each."""
+    g, corner, size = _level_window(5, 3)
+    g = tb._channel_stack(g)
+    r, qh = 32, 2
+    row0, rows, x0 = 0, r, 0
+    if kind == "band":
+        row0, rows = 8, 8
+        x0 = row0 - 2 * qh
+    elif kind == "band0":
+        rows = 8
+    elif kind == "tiles":
+        g = torch.stack([g, g.flip(0)])
+        corner = torch.stack([corner, corner + 3.0])
+    gx = g[..., x0:row0 + rows + 2 * qh, :, :]
+    launches = km2.m2l2.launches
+    got = km2.m2l2(gx, corner, size, r, 1.0, 3, row0=row0, rows=rows, x0=x0)
+    assert km2.m2l2.launches == launches
+    lo = row0 - 2 * qh
+    pad = torch.nn.functional.pad(g, (0, 0, 0, 0, 2 * qh, 2 * qh))
+    ref = tb._m2l_conv(pad[..., lo + 2 * qh:row0 + rows + 4 * qh, :, :],
+                       corner, size, r, 1.0, 3, row0=row0, rows=rows)
+    assert len(got) == 9
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_m2l_conv_runs_with_tf32_off(monkeypatch):

@@ -1,6 +1,6 @@
 """PyTorch port on an NVIDIA GPU: the CUDA kernels K1-K7, the potential
-kernel and the octree's M2L kernel against their plain torch versions on the
-card (the potential also against the float64 oracle), their launch counts,
+kernel and the two trees' M2L kernels against their plain torch versions on
+the card (the potential also against the float64 oracle), their launch counts,
 the N=25k main path, the 2D and 3D tree code and the large-N collision
 passes through the kernels against the same code through the plain
 versions.
@@ -17,7 +17,9 @@ import pytest
 import torch
 
 import nbodysim_tpu_torch as nt
+from nbodysim_tpu_torch.kernels import m2l2 as km2
 from nbodysim_tpu_torch.kernels import m2l3 as km3
+from nbodysim_tpu_torch.kernels.m2l2 import RADII
 from nbodysim_tpu_torch.kernels.allpairs import (
     _launch, _launch_potential, allpairs_accelerations,
     allpairs_accelerations_plain, allpairs_accelerations_wide,
@@ -973,6 +975,125 @@ def test_m2l3_raises_on_what_it_does_not_take(dev):
                 dict(corner_=corner.double()), dict(rows=15),
                 dict(row0=1, rows=8), dict(rows=18), dict(radius_=6),
                 dict(g_=g[:15, :15, :15], r_=15)):
+        with pytest.raises(ValueError):
+            launch(**bad)
+
+
+def _m2l2_case(dev, case):
+    """(g, corner, size, r, radius, row0, rows, x0) of one 2D M2L kernel
+    case, made on the card from the quadtree's moment pyramid of the deep
+    chain's two dense blobs (N = 65,536; most cells of the fine grids are
+    empty), as the callers pass them: a full level (the pyramid's channel
+    view), the same level channel-first (another stride order), a batch of
+    tile grids with one corner each, a banded row window (its halo rows
+    given, or cut at the grid's edge), and the synthesized pyramid of the
+    blobs moved to large absolute coordinates (the deep levels' cancelling
+    quadrupoles)."""
+    kind, r, radius = case
+    pos, mass = _deep_blobs(dev, 65_536)
+    if kind in ("synth", "tiles"):
+        pos = pos + torch.tensor([3.0e5, -2.0e5], device=dev)
+    top = max(r.bit_length() - 1, 7)
+    grids, corner, size, _, _ = bh._build_pyramid(
+        pos, mass, top, synth_quad=kind in ("synth", "tiles"))
+    g = bh._channel_stack(grids[r.bit_length() - 1 if kind != "tiles"
+                                else 7])
+    qh = radius - 1
+    if kind in ("full", "synth"):
+        return g, corner, size, r, radius, 0, r, 0
+    if kind == "chfirst":
+        g = g.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        return g, corner, size, r, radius, 0, r, 0
+    if kind == "tiles":
+        s128 = size / 128
+        orig = [(0, 0), (40, 16), (52, 52)]
+        g = torch.stack([g[a:a + r, b:b + r] for a, b in orig])
+        corner_t = corner + torch.tensor(orig, dtype=torch.float32,
+                                         device=dev) * s128
+        return g, corner_t, r * s128, r, radius, 0, r, 0
+    row0, rows = (16, 16) if kind == "band" else (0, 16)
+    x0 = max(row0 - 2 * qh, 0)
+    return (g[x0:row0 + rows + 2 * qh], corner, size, r, radius, row0, rows,
+            x0)
+
+
+M2L2_CASES = ([("full", 4, radius) for radius in (2, 3)]
+              + [("full", r, radius) for r in (8, 64) for radius in RADII]
+              + [("full", 256, 3)]
+              + [("full", 1024, radius) for radius in (2, 3, 5)]
+              + [("chfirst", 64, 3), ("tiles", 76, 3), ("band", 64, 3),
+                 ("band", 64, 5), ("band0", 64, 3), ("synth", 1024, 3)])
+# Each term class within this share of the class's max |value| of the plain
+# version: the two sum the 42 products of each of 3 (2R-1)^2 sources in
+# other orders (cuDNN's implicit GEMM, the kernel's fixed order), and the
+# rank-3 and rank-4 derivatives in H cancel more between sources.
+M2L2_TOL = {"F": 1e-5, "J": 1e-5, "H": 2e-5}
+M2L2_CLASSES = {"F": (0, 1), "J": (2, 3, 4), "H": (5, 6, 7, 8)}
+
+
+@pytest.mark.parametrize("case", M2L2_CASES, ids=str)
+def test_m2l2_matches_plain(dev, case):
+    """The 2D M2L kernel against its plain version on the card (cuDNN with
+    TF32 off): each term class within its bound (`M2L2_TOL`); one launch
+    counted. The kernel centres the moments op for op as the plain version
+    does, so they differ in the contraction's summation order and the
+    table's roundings alone."""
+    g, corner, size, r, radius, row0, rows, x0 = _m2l2_case(dev, case)
+    launches = km2.m2l2.launches
+    got = km2.m2l2(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                   x0=x0)
+    assert km2.m2l2.launches == launches + 1
+    ref = km2.m2l2_plain(g, corner, size, r, 25.0, radius, row0=row0,
+                         rows=rows, x0=x0)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 9
+    for cls, terms in M2L2_CLASSES.items():
+        scale = max(float(ref[t].abs().max()) for t in terms)
+        assert scale > 0, cls
+        for t in terms:
+            a, b = got[t], ref[t]
+            assert a.shape == b.shape == g.shape[:-3] + (rows, r)
+            assert bool(torch.isfinite(a).all()), t
+            assert float((a - b).abs().max()) <= M2L2_TOL[cls] * scale, t
+
+
+def test_m2l2_replays_bit_for_bit(dev):
+    """Two launches on one input agree bit for bit (no atomics)."""
+    g, corner, size, r, radius, row0, rows, x0 = _m2l2_case(
+        dev, ("synth", 1024, 3))
+    a = km2.m2l2(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                 x0=x0)
+    b = km2.m2l2(g, corner, size, r, 25.0, radius, row0=row0, rows=rows,
+                 x0=x0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_m2l_level_takes_channel_views_and_stacks(dev):
+    """`_m2l_level` on the pyramid's channel views (one strided tensor, no
+    copy) and on six separate grids (stacked) launches the kernel once each
+    and gives the same terms bit for bit."""
+    g, corner, size, r, radius, _, _, _ = _m2l2_case(dev, ("full", 64, 3))
+    views = tuple(g[..., c] for c in range(6))
+    assert bh._channel_stack(views).data_ptr() == g.data_ptr()
+    launches = km2.m2l2.launches
+    a = bh._m2l_level(views, corner, size, 25.0, radius)
+    b = bh._m2l_level(tuple(v.clone() for v in views), corner, size, 25.0,
+                      radius)
+    assert km2.m2l2.launches == launches + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_m2l2_raises_on_what_it_does_not_take(dev):
+    g, corner, size, r, radius, _, _, _ = _m2l2_case(dev, ("full", 64, 3))
+
+    def launch(g_=g, r_=r, radius_=radius, row0=0, rows=64, corner_=corner):
+        return km2.m2l2(g_, corner_, size, r_, 25.0, radius_, row0=row0,
+                        rows=rows, x0=0)
+
+    for bad in (dict(g_=g.double()), dict(g_=g[..., :5]),
+                dict(corner_=corner.double()), dict(corner_=corner[:1]),
+                dict(rows=63), dict(row0=1, rows=8), dict(rows=66),
+                dict(radius_=6), dict(g_=g[:63, :63], r_=63)):
         with pytest.raises(ValueError):
             launch(**bad)
 

@@ -9,7 +9,7 @@ compactions forced on by smaller caps): nothing is kept while nothing
 records; the step gives bit-identical states with recording on and off;
 its row counters equal counts taken from the compactions' own masks;
 `host_syncs` equals the `host_read` calls; the spans nest step > forces >
-tree.* (the octree's `tree.m2l` inside `tree.downward`, `tree.deep` and
+tree.* (each M2L level's `tree.m2l` inside `tree.downward`, `tree.deep` and
 `tree.tiles`) and step > collisions > collide.*; `trace()`'s Chrome trace
 holds them beside the aten ops; both trees' steps call the one pipeline's
 `barneshut._exact_couplings` and `barneshut._tile_refine`.
@@ -20,8 +20,8 @@ octree's deep chain, K7), `host_syncs` equals the syncs that
 `torch.cuda.set_sync_debug_mode("warn")` reports less the uncounted
 host-to-device copies of host constants, recording adds no sync, and the
 states are bit-identical with recording on and off; each M2L level of the
-Plummer step is one launch of the M2L kernel, with no cuDNN and no copy
-under `tree.m2l`; `Simulation.run(10)` on the N = 25,000 disc makes no host
+merger step and of the Plummer step is one launch of its tree's M2L kernel,
+with no cuDNN and no copy under `tree.m2l`; `Simulation.run(10)` on the N = 25,000 disc makes no host
 sync; a viewer frame's `hud_text()` launches the potential kernel once and
 syncs only in its two `host_read`s.
 This file imports no JAX; on a machine with a card, run:
@@ -48,10 +48,9 @@ from nbodysim_tpu_torch.render.splat import RenderConfig
 
 CPU = torch.device("cpu")
 FIELDS = ("pos", "vel", "acc", "mass", "radius", "frame")
-# Host-to-device copies of host constants: syncs no counter holds (the M2L
-# tap tables, the outlier flags' True, the block pass's cell floor and
-# window offsets).
-UNCOUNTED = ("torch.as_tensor(", "torch.tensor(", "is_out[out_i] = True")
+# Host-to-device copies of host constants: syncs no counter holds (the
+# outlier flags' True, the block pass's cell floor and window offsets).
+UNCOUNTED = ("torch.tensor(", "is_out[out_i] = True")
 
 
 def _merger_config(n: int, **kw) -> nt.SimConfig:
@@ -105,7 +104,8 @@ TREES = {
                "scatter_rows"],
         collide=["collide.structure", "collide.planes", "collide.block",
                  "collide.corrections"],
-        m2l={},
+        # Levels 2-4, deep levels 5-6, tile sub-levels 1-2.
+        m2l={"tree.downward": 3, "tree.deep": 2, "tree.tiles": 2},
         read_in={"deep_rows": "tree.deep", "scatter_rows": "tree.tiles",
                  "apply_rows": "tree.tiles",
                  "collide_overflow": "collide.corrections"}),
@@ -429,6 +429,68 @@ def test_card_plummer_syncs_are_the_host_reads(dev):
     assert {s.name for s in rec.select("tree.m2l", under="tree.deep")}
 
 
+def _check_m2l_runs_the_kernel(sim, kernel, counter, expected):
+    """One step of `sim` after its first: `expected` launches of the M2L
+    kernel `kernel` (its counter `counter`), as many `tree.m2l` spans,
+    nothing under them that calls cuDNN or copies memory, and the forces
+    within a median 1e-4 (and 1e-3 of the largest) of the same state's CPU
+    plain route. Returns the recorder."""
+    launches = kernel.launches
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof, profiling.recording() as rec:
+        sim.run(1)
+    torch.cuda.synchronize()
+    assert rec.counters[counter] == expected
+    assert kernel.launches == launches + expected
+    events = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CUDA]
+    m2l = [e.time_range for e in events if e.name == "tree.m2l"]
+    assert len(m2l) == expected
+    inside = [e.name for e in events if e.name != "tree.m2l" and any(
+        r.start <= e.time_range.start <= r.end for r in m2l)]
+    assert not [x for x in inside if "cudnn" in x or "conv" in x
+                or "Memcpy" in x or x.startswith("aten::copy_")], inside
+
+    cfg = sim.config
+    pos, mass = sim.state.pos, sim.state.mass
+    got = nt.compute_accelerations(pos, mass, cfg)
+    ref = nt.compute_accelerations(pos.cpu(), mass.cpu(), cfg)
+    err = (got.cpu() - ref).norm(dim=1) / ref.norm(dim=1)
+    assert float(err.median()) < 1e-4
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * float(
+        ref.abs().max())
+    return rec
+
+
+@pytest.mark.cuda
+def test_card_merger_m2l_runs_the_kernel(dev, monkeypatch):
+    """One step of the N = 131,072 deep-chain merger after its first: every
+    M2L level the config resolves (levels 2..L, the deep levels, the tile
+    sub-levels) is one launch of the 2D M2L kernel (`m2l2.launches`),
+    nothing under `tree.m2l` calls cuDNN or copies memory, `host_syncs`
+    equals the same step's with the M2L on its plain route, and the forces
+    match the same state's CPU plain route."""
+    from nbodysim_tpu_torch.kernels import m2l2 as km2
+
+    sim = _merger(131_072, dev)
+    sim.run(1)
+    cfg = sim.config
+    levels = bh._resolve_levels(cfg, cfg.n)
+    deep = bh._resolve_deep_levels(cfg, levels)
+    tk, _, _ = bh._resolve_tile_params(cfg, deep, bh._resolve_radius(cfg))
+    assert deep and tk
+    state0 = sim.state
+    with monkeypatch.context() as mp:
+        mp.setattr(bh, "m2l2", km2.m2l2_plain)
+        _, plain = _step_from(sim, state0, record=True)
+    sim.state = state0
+    rec = _check_m2l_runs_the_kernel(
+        sim, km2.m2l2, "m2l2.launches", (levels - 1) + (deep - levels) + tk)
+    assert rec.counters["host_syncs"] == plain.counters["host_syncs"] >= 3
+
+
 @pytest.mark.cuda
 def test_card_plummer_m2l_runs_the_kernel(dev):
     """One step of the N = 131,072 Plummer sphere after its first: every
@@ -446,33 +508,9 @@ def test_card_plummer_m2l_runs_the_kernel(dev):
     deep = bh3._resolve_deep_levels3(cfg, levels)
     tk, _, _ = bh3._resolve_tile_params3(cfg, deep, bh3._resolve_radius3(cfg))
     assert deep and tk
-    launches = m2l3.launches
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    with prof, profiling.recording() as rec:
-        sim.run(1)
-    torch.cuda.synchronize()
-    expected = (levels - 1) + (deep - levels) + tk
-    assert rec.counters["m2l3.launches"] == expected
-    assert m2l3.launches == launches + expected
+    rec = _check_m2l_runs_the_kernel(sim, m2l3, "m2l3.launches",
+                                     (levels - 1) + (deep - levels) + tk)
     assert rec.counters["host_syncs"] == 4
-    events = [e for e in prof.events()
-              if e.device_type != torch.autograd.DeviceType.CUDA]
-    m2l = [e.time_range for e in events if e.name == "tree.m2l"]
-    assert len(m2l) == expected
-    inside = [e.name for e in events if e.name != "tree.m2l" and any(
-        r.start <= e.time_range.start <= r.end for r in m2l)]
-    assert not [x for x in inside if "cudnn" in x or "conv" in x
-                or "Memcpy" in x or x.startswith("aten::copy_")], inside
-
-    pos, mass = sim.state.pos, sim.state.mass
-    got = nt.compute_accelerations(pos, mass, cfg)
-    ref = nt.compute_accelerations(pos.cpu(), mass.cpu(), cfg)
-    err = (got.cpu() - ref).norm(dim=1) / ref.norm(dim=1)
-    assert float(err.median()) < 1e-4
-    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * float(
-        ref.abs().max())
 
 
 @pytest.mark.cuda
