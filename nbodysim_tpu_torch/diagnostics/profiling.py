@@ -12,11 +12,12 @@
     it ran on.
   * `span`, `host_read`, `count`, `recording` — the program's own spans and
     counters. `span(name)` marks a stage of the step (`step`, `forces`,
-    `collisions`, the 2D tree's `tree.*`, the block pass's `collide.*`, the
-    viewer's `render` and `hud`); `host_read(t, what)` is every read of a
-    device value the step has to make (one host sync, counted as
-    `host_syncs`, inside the span `host_read.<what>`); `count(name, value)`
-    adds a number the program already holds on the host. With nothing
+    `collisions`, the tree's `tree.*`, the block and bucket passes'
+    `collide.*`, the viewer's `render` and `hud`); `host_read(t, what)` is
+    every read of a device value the step has to make (one host sync,
+    counted as `host_syncs`, inside the span `host_read.<what>`);
+    `count(name, value)` adds a number the program already holds on the
+    host. With nothing
     recording and no profiler running, a span or a read costs one flag
     check. Under `recording()` the spans and counters are kept in memory
     (the `Recorder` it yields); under a `torch.profiler` (`trace` or any
@@ -196,8 +197,9 @@ def measure_step_throughput(
 # ---------------------------------------------------------------------------
 
 # Spans whose extent on the device's clock a recording keeps (a CUDA event
-# at each edge): the layers of the step.
-LAYER_SPANS = ("step", "forces", "collisions")
+# at each edge): the layers of the step, and the bucket collision pass's
+# stencil, the one stage whose device time is read on its own.
+LAYER_SPANS = ("step", "forces", "collisions", "collide.stencil")
 
 # The active recording. One per process: the spans sit deep in the physics,
 # which takes no recorder argument; `recording()` sets and restores it.
@@ -244,7 +246,8 @@ def _matches(name: str, pattern: str) -> bool:
 
 class Recorder:
     """What one `recording()` kept: `spans` in the order they opened,
-    `counters` by name (`host_syncs`, the tree's row counts)."""
+    `counters` by name (`host_syncs`, the tree's row counts, the overflow
+    counts the tree's and the collision pass's residual branches read)."""
 
     def __init__(self, device_events: bool):
         self.spans: List[SpanRecord] = []
@@ -362,13 +365,15 @@ def span(name: str):
 def host_read(t: torch.Tensor, what: str):
     """`t.item()`: the Python value of a one-element tensor the program has
     to read on the host, which on a card waits for every queued operation
-    (a host sync). Recorded, it counts `host_syncs` and runs inside the
-    span `host_read.<what>`, the time the host sits blocked."""
+    (a host sync); `t.tolist()` for a longer one, still one sync. Recorded,
+    it counts `host_syncs` and runs inside the span `host_read.<what>`, the
+    time the host sits blocked."""
+    read = torch.Tensor.item if t.numel() == 1 else torch.Tensor.tolist
     rec = _recorder
     if rec is None and not _autograd_profiler._is_profiler_enabled:
-        return t.item()
+        return read(t)
     with _Span("host_read." + what):
-        value = t.item()
+        value = read(t)
     if rec is not None:
         rec.add("host_syncs", 1)
     return value

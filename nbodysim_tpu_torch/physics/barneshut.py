@@ -668,6 +668,25 @@ def _bucket_gather(b: _Buckets, acc, res: int, cap: int):
                         for a in acc], -1)
 
 
+def _residual_blocks(b: _Buckets, rr: int, block: int):
+    """Which `block`-row slices of the sorted particles hold a particle
+    within rr cells, along the grid's first axis, of an overflow particle:
+    [ceil(N / block)] bool, on the device, with no host read. The residual's
+    mask is a Chebyshev one, so each pair across any other slice is masked
+    to an exact zero."""
+    x = b.ci_s[:, 0]
+    res = b.counts.shape[1]
+    n = x.shape[0]
+    # over_x[k + rr]: overflow particles in column k, rr zero columns on
+    # each side.
+    over_x = torch.zeros(res + 2 * rr, dtype=torch.int32, device=x.device)
+    over_x.index_add_(0, x + rr, (~b.in_cap).to(torch.int32))
+    cs = torch.cumsum(over_x, 0)
+    near = cs[2 * rr:] - F.pad(cs, (1, 0))[:res]     # columns k-rr..k+rr
+    hit = F.pad(near[x] > 0, (0, -n % block))
+    return hit.view(-1, block).any(1)
+
+
 def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
     """Exact residual for bucket overflow (clustered cells), in sorted order,
     in 2D or 3D.
@@ -678,26 +697,43 @@ def _overflow_residual(b: _Buckets, acc_s, eps_sq, rr: int):
       (c) O targets <- in-cap sources, near-cell-masked.
     O's far field is already exact (the pyramid holds every particle). Two
     tiers: the masked pass costs O(N * cap), so a mild overflow (a few
-    clustered cells) takes the 1024-wide tier. The tier is a Python branch
-    on the overflow count: one host sync (`host_read`)."""
+    clustered cells) takes the 1024-wide tier. Both passes run in slices of
+    `block` sorted rows and take only the slices that `_residual_blocks`
+    marks: every pair across the others is masked to zero, and the slices
+    taken are the full pass's own, so the sums are the full pass's. The tier
+    and the slices are Python branches on the overflow count and the marks:
+    one host sync (`host_read`), counted as `tree.near_overflow`."""
     n = acc_s.shape[0]
-    over = profiling.host_read(b.overflow, "near_overflow")
+    block = 32768 if acc_s.device.type == "cuda" else 2048
+    read = profiling.host_read(
+        torch.cat([b.overflow.view(1),
+                   _residual_blocks(b, rr, block).to(b.overflow.dtype)]),
+        "near_overflow")
+    over, marked = read[0], [i * block for i, m in enumerate(read[1:]) if m]
+    profiling.count("tree.near_overflow", over)
     m_cap = min(n, _OVERFLOW_CAP)
     m_small = min(n, _OVERFLOW_SMALL)
     if over == 0:
         return acc_s
     cap_k = m_cap if over > m_small or m_small >= m_cap else m_small
-    block = 32768 if acc_s.device.type == "cuda" else 2048
     o_idx = torch.argsort(b.in_cap.to(torch.int32), stable=True)[:cap_k]
     o_valid = ~b.in_cap[o_idx]
     o_pos = b.pos_s[o_idx]
     o_mass = torch.where(o_valid, b.mass_s[o_idx], 0.0)
     o_cell = b.ci_s[o_idx]
-    acc_s = acc_s + _near_masked_blocked(
-        b.pos_s, b.ci_s, o_pos, o_mass, o_cell, eps_sq, rr, block)
     cap_mass = torch.where(b.in_cap, b.mass_s, 0.0)
-    o_acc = _near_masked_blocked(
-        o_pos, o_cell, b.pos_s, cap_mass, b.ci_s, eps_sq, rr, block)
+    near = torch.zeros_like(acc_s)
+    o_acc = None
+    for i in marked:
+        rows = slice(i, i + block)
+        near[rows] = _near_masked_blocked(
+            b.pos_s[rows], b.ci_s[rows], o_pos, o_mass, o_cell, eps_sq, rr,
+            block)
+        part = _near_masked_blocked(
+            o_pos, o_cell, b.pos_s[rows], cap_mass[rows], b.ci_s[rows],
+            eps_sq, rr, block)
+        o_acc = part if o_acc is None else o_acc + part
+    acc_s = acc_s + near
     return acc_s.index_add(0, o_idx, torch.where(o_valid[:, None], o_acc, 0.0))
 
 

@@ -238,11 +238,13 @@ def _exact_corrections(dpos_s, dvel_s, fields_s: Fields, in_cover, big_s,
     fully resolved; `big_src` is the (<= 64)-row extracted big-body tuple
     and `top_sorted` its rows' sorted-order indices. The residual runs only
     when `overflow` > 0: a Python branch, one host sync (`host_read`; JAX:
-    lax.cond)."""
+    lax.cond), counted as `collide.overflow`."""
     dpos_s, dvel_s = _big_body_corrections(
         dpos_s, dvel_s, fields_s, big_s, big_src, big_sel, top_sorted,
         impulse, dim, use_kernel)
-    if profiling.host_read(overflow, "collide_overflow") > 0:
+    over = profiling.host_read(overflow, "collide_overflow")
+    profiling.count("collide.overflow", over)
+    if over > 0:
         dpos_s, dvel_s = _residual_corrections(
             dpos_s, dvel_s, fields_s, in_cover, big_s, impulse, dim,
             use_kernel)
@@ -537,48 +539,54 @@ def _bucket_pass(state: ParticleState, config: SimConfig) -> ParticleState:
 def _bucket_deltas(state: ParticleState, config: SimConfig,
                    use_kernel: bool):
     """The bucket pass's (dpos, dvel) [N, 2] in the original order, its
-    corrections through K5 with `use_kernel`."""
+    corrections through K5 with `use_kernel`. Spans `collide.bucket_grid`
+    (cells, sort, slots, the six planes), `collide.stencil` and
+    `collide.corrections` (the gathers, the exact passes)."""
     pos, vel, mass, radius = state.pos, state.vel, state.mass, state.radius
     n = state.n
     cap = config.collision_max_neighbors
     res = config.collision_grid_res
-    bc = _bucket_cells(pos, radius, config)
-    order = torch.argsort(bc.flat, stable=True)
-    flat_s = bc.flat[order]
-    slot = torch.arange(n, device=pos.device) - sorted_first_occurrence(flat_s)
-    big_s = bc.bigs.is_big[order]
-    in_cap = (slot < cap) & ~big_s
-    overflow = (~in_cap & ~big_s).sum()
-    fields_s = (pos[order], vel[order], mass[order], radius[order],
-                bc.cell[order])
-    pos_s, vel_s, mass_s, radius_s, _ = fields_s
+    with profiling.span("collide.bucket_grid"):
+        bc = _bucket_cells(pos, radius, config)
+        order = torch.argsort(bc.flat, stable=True)
+        flat_s = bc.flat[order]
+        slot = (torch.arange(n, device=pos.device)
+                - sorted_first_occurrence(flat_s))
+        big_s = bc.bigs.is_big[order]
+        in_cap = (slot < cap) & ~big_s
+        overflow = (~in_cap & ~big_s).sum()
+        fields_s = (pos[order], vel[order], mass[order], radius[order],
+                    bc.cell[order])
+        pos_s, vel_s, mass_s, radius_s, _ = fields_s
 
-    # Dropped entries (past the cap, bigs) go to one spare slot, cut off.
-    size = res * res * cap
-    dest = torch.where(in_cap, flat_s * cap + slot, size)
+        # Dropped entries (past the cap, bigs) go to one spare slot, cut off.
+        size = res * res * cap
+        dest = torch.where(in_cap, flat_s * cap + slot, size)
 
-    def scatter(vals, fill=0.0):
-        buf = torch.full((size + 1,), fill, dtype=pos.dtype,
-                         device=pos.device)
-        buf[dest] = vals
-        return buf[:size].reshape(res, res, cap)
+        def scatter(vals, fill=0.0):
+            buf = torch.full((size + 1,), fill, dtype=pos.dtype,
+                             device=pos.device)
+            buf[dest] = vals
+            return buf[:size].reshape(res, res, cap)
 
-    planes = (scatter(pos_s[:, 0]), scatter(pos_s[:, 1]),
-              scatter(vel_s[:, 0]), scatter(vel_s[:, 1]),
-              scatter(torch.where(in_cap, mass_s, 0.0)),
-              scatter(radius_s, fill=-1e9))
-    acc = _bucket_stencil(planes, res, cap, config.collision_impulse)
+        planes = (scatter(pos_s[:, 0]), scatter(pos_s[:, 1]),
+                  scatter(vel_s[:, 0]), scatter(vel_s[:, 1]),
+                  scatter(torch.where(in_cap, mass_s, 0.0)),
+                  scatter(radius_s, fill=-1e9))
+    with profiling.span("collide.stencil"):
+        acc = _bucket_stencil(planes, res, cap, config.collision_impulse)
 
-    # Gathers clamp out-of-grid ids, as JAX's do; those rows are masked.
-    gidx = (torch.clamp(flat_s, max=res * res - 1) * cap
-            + torch.clamp(slot, max=cap - 1))
-    dx, dy, dvx, dvy = (torch.where(in_cap, a.reshape(-1)[gidx], 0.0)
-                        for a in acc)
-    dpos_s = torch.stack([dx, dy], -1)
-    dvel_s = torch.stack([dvx, dvy], -1)
-    return _corrected_deltas(
-        state, order, bc.bigs, bc.cell, fields_s, dpos_s, dvel_s, in_cap,
-        big_s, overflow, config, use_kernel)
+    with profiling.span("collide.corrections"):
+        # Gathers clamp out-of-grid ids, as JAX's do; those rows are masked.
+        gidx = (torch.clamp(flat_s, max=res * res - 1) * cap
+                + torch.clamp(slot, max=cap - 1))
+        dx, dy, dvx, dvy = (torch.where(in_cap, a.reshape(-1)[gidx], 0.0)
+                            for a in acc)
+        dpos_s = torch.stack([dx, dy], -1)
+        dvel_s = torch.stack([dvx, dvy], -1)
+        return _corrected_deltas(
+            state, order, bc.bigs, bc.cell, fields_s, dpos_s, dvel_s, in_cap,
+            big_s, overflow, config, use_kernel)
 
 
 def collision_bucket_overflow(state: ParticleState, config: SimConfig) -> int:

@@ -3,7 +3,8 @@
 `uniform_disc` (the reference's flagship scene), `kepler`, `kepler_system`,
 `plummer` (BASELINE config 2), `galaxy_merger` (BASELINE config 5) and the
 two extension scenes `spiral` (logarithmic spiral arms) and `kuzmin` (a
-disc with a closed-form rotation curve), as in the JAX package.
+disc with a closed-form rotation curve), as in the JAX package, and the
+port's `uniform_square` (the headline N=1M throughput input as a scene).
 Every constructor builds on the card (`device="cuda"`) unless the caller
 passes another device, such as `device="cpu"`.
 """
@@ -20,6 +21,7 @@ from nbodysim_tpu_torch.scenes.kepler import kepler_orbit, kepler_system
 from nbodysim_tpu_torch.scenes.kuzmin import kuzmin_disc
 from nbodysim_tpu_torch.scenes.plummer import plummer_sphere
 from nbodysim_tpu_torch.scenes.spiral import spiral_galaxy
+from nbodysim_tpu_torch.scenes.square import uniform_square
 
 
 SCENES: Dict[str, Callable[..., ParticleState]] = {
@@ -30,6 +32,7 @@ SCENES: Dict[str, Callable[..., ParticleState]] = {
     "galaxy_merger": galaxy_merger,
     "spiral": spiral_galaxy,
     "kuzmin": kuzmin_disc,
+    "uniform_square": uniform_square,
 }
 
 
@@ -52,4 +55,5 @@ __all__ = [
     "galaxy_merger",
     "spiral_galaxy",
     "kuzmin_disc",
+    "uniform_square",
 ]

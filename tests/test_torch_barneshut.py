@@ -220,6 +220,36 @@ def test_near_field_buckets_both_residual_tiers(n_hot, tier):
     _close(acc, jacc)
 
 
+@pytest.mark.parametrize("clusters", [[0.3], [0.1, 0.8]])
+def test_overflow_residual_takes_only_the_marked_slices(monkeypatch,
+                                                        clusters):
+    """The residual runs on the 2048-row slices of the sorted particles that
+    lie near an overflowing cell along x, and its sums are the full pass's
+    bit for bit: the full pass is the same function with every slice
+    marked. Uniform particles, about 4 a cell of the 64^2 grid, and a clump
+    of 40 in one cell at each x fraction of `clusters`."""
+    n, levels, rr = 16384, 6, 2
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(-1000.0, 1000.0, (n, 2)).astype(np.float32)
+    for k, fx in enumerate(clusters):
+        pos[40 * k:40 * (k + 1)] = [2000.0 * fx - 1000.0, 137.0] \
+            + rng.uniform(0.0, 5.0, (40, 2))
+    mass = rng.uniform(0.1, 10.0, n).astype(np.float32)
+    _, _, _, ci, flat = tb._build_pyramid(as_t(pos), as_t(mass), levels)
+    b = tb._bucket_grid(as_t(pos), as_t(mass), ci, flat, 1 << levels,
+                        tb.NEAR_CAP, rr)
+    acc_s = as_t(rng.standard_normal((n, 2)).astype(np.float32))
+    marks = tb._residual_blocks(b, rr, 2048)
+    assert 0 < int(b.overflow) <= tb._OVERFLOW_SMALL
+    assert 0 < int(marks.sum()) < marks.shape[0]
+    out = tb._overflow_residual(b, acc_s, 1.0, rr)
+    monkeypatch.setattr(tb, "_residual_blocks",
+                        lambda b, rr, block: torch.ones_like(marks))
+    full = tb._overflow_residual(b, acc_s, 1.0, rr)
+    assert torch.equal(out, full)
+    assert not torch.equal(out, acc_s)
+
+
 def test_extract_heavy_outliers_on_the_disc():
     """The disc's 1e9 central body is extracted as the one heavy body."""
     pos, mass = _disc(2048)

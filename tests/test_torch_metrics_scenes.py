@@ -156,6 +156,50 @@ def test_uniform_disc_determinism_and_jax_geometry():
         uniform_disc(nt.SimConfig(n=64, dim=3), device=CPU)
 
 
+def test_uniform_square_is_the_throughput_input():
+    """At N = 2^20 the square's positions and masses are the headline
+    throughput input (`profiling.measure_force_throughput`: one generator
+    seeded 0, positions uniform in +-3e4 first, then masses in [0.1, 10])
+    bit for bit; only the velocities, uniform in +-5, follow the seed; the
+    half-width keeps that density at any n."""
+    from nbodysim_tpu_torch.core.state import cbrt
+    from nbodysim_tpu_torch.scenes.square import square_half_width
+
+    n = 1 << 20
+    g = torch.Generator(device=CPU)
+    g.manual_seed(0)
+    pos = -30000.0 + 60000.0 * torch.rand((n, 2), generator=g, device=CPU)
+    mass = 0.1 + 9.9 * torch.rand(n, generator=g, device=CPU)
+    a = nt.init_scene("uniform_square", nt.SimConfig(n=n, seed=3),
+                      device=CPU)
+    assert torch.equal(a.pos, pos) and torch.equal(a.mass, mass)
+    assert torch.equal(a.radius, cbrt(mass))
+    assert float(a.vel.abs().max()) <= 5.0
+    assert abs(float(a.vel.mean())) < 0.02
+    assert square_half_width(n) == 30000.0
+    b = nt.init_scene("uniform_square", nt.SimConfig(n=4096, seed=3),
+                      device=CPU)
+    c = nt.init_scene("uniform_square", nt.SimConfig(n=4096, seed=4),
+                      device=CPU)
+    assert torch.equal(b.pos, c.pos) and torch.equal(b.mass, c.mass)
+    assert not torch.equal(b.vel, c.vel)
+    assert float(b.pos.abs().max()) <= 30000.0 / 16
+    # The velocities' generator is seeded 2 * seed + 1, never the layout's
+    # 0: at seed 0 they are not the positions scaled.
+    g = torch.Generator(device=CPU)
+    g.manual_seed(7)
+    assert torch.equal(b.vel, -5.0 + 10.0 * torch.rand(
+        (4096, 2), generator=g, device=CPU))
+    z = nt.init_scene("uniform_square", nt.SimConfig(n=4096, seed=0),
+                      device=CPU)
+    assert torch.equal(z.pos, b.pos)
+    corr = torch.corrcoef(torch.stack([z.pos[:, 0], z.vel[:, 0]]))[0, 1]
+    assert abs(float(corr)) < 0.1
+    with pytest.raises(ValueError):
+        nt.init_scene("uniform_square", nt.SimConfig(n=64, dim=3),
+                      device=CPU)
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_kepler_scenes(dim):
     cfg = nt.SimConfig(n=64, dim=dim)

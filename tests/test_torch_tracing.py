@@ -3,15 +3,19 @@
 `recording`).
 
 On the CPU, for each tree (`TREES`: a 2D deep-chain merger step with the
-block collision pass, and a 3D Plummer-sphere step of the octree's deep
+block collision pass, a 3D Plummer-sphere step of the octree's deep
 chain with its sparse near field, each at N = 2048 with its row
-compactions forced on by smaller caps): nothing is kept while nothing
+compactions forced on by smaller caps, and a step of the plain quadtree
+with the bucket collision pass on the N = 2048 uniform square, whose
+buckets overflow into the tree's residual): nothing is kept while nothing
 records; the step gives bit-identical states with recording on and off;
 its row counters equal counts taken from the compactions' own masks;
-`host_syncs` equals the `host_read` calls; the spans nest step > forces >
-tree.* (each M2L level's `tree.m2l` inside `tree.downward`, `tree.deep` and
-`tree.tiles`) and step > collisions > collide.*; `trace()`'s Chrome trace
-holds them beside the aten ops; both trees' steps call the one pipeline's
+`host_syncs` equals the `host_read` calls, and the overflow counters
+(`collide.overflow`, `tree.near_overflow`) the counts those reads return;
+the spans nest step > forces > tree.* (each M2L level's `tree.m2l` inside
+`tree.downward`, `tree.deep` and `tree.tiles`) and step > collisions >
+collide.*; `trace()`'s Chrome trace holds them beside the aten ops; both
+deep-chain trees' steps call the one pipeline's
 `barneshut._exact_couplings` and `barneshut._tile_refine`.
 
 On the card (marked `cuda`, skipped without one): over one step of a 2D
@@ -82,11 +86,28 @@ def _plummer(n: int, device, **kw) -> nt.Simulation:
             "plummer", cfg, virialize=False, device=device), device=device)
 
 
+STAGES = ["tree.couplings", "tree.pyramid", "tree.downward", "tree.near",
+          "tree.deep", "tree.tiles", "tree.assemble"]
+PLAIN_STAGES = [x for x in STAGES if x not in ("tree.deep", "tree.tiles")]
+# The reads of a device count that a counter of the same count follows.
+OVERFLOW_COUNTERS = {"collide_overflow": "collide.overflow",
+                     "near_overflow": "tree.near_overflow"}
+
+
+def _square(n: int, device, **kw) -> nt.Simulation:
+    """SimConfig()'s physics on the uniform square, the plain quadtree and
+    the bucket collision pass."""
+    cfg = nt.SimConfig(**{**dict(n=n, force_backend="bh",
+                                 collision_broad_phase="bucket"), **kw})
+    return nt.Simulation(cfg, scene="uniform_square", device=device)
+
+
 # Each tree's CPU step: the module that holds its caps and stages, the caps
 # cut so that the deep rows fit their compaction and the tile scatter and
 # apply do not, the compactions in the order the step runs them, the reads
-# of a device count, the collision pass's stage spans, the `tree.m2l` spans
-# each parent stage holds, and the parent stage of each read.
+# of a device count, the tree's stage spans, the collision pass's stage
+# spans, the `tree.m2l` spans each parent stage holds, and the parent stage
+# of each read.
 TREES = {
     "merger2d": dict(
         module=bh,
@@ -102,6 +123,7 @@ TREES = {
         # residual branch.
         reads=["apply_rows", "collide_overflow", "deep_rows",
                "scatter_rows"],
+        stages=STAGES,
         collide=["collide.structure", "collide.planes", "collide.block",
                  "collide.corrections"],
         # Levels 2-4, deep levels 5-6, tile sub-levels 1-2.
@@ -126,15 +148,31 @@ TREES = {
         # takes the deep path, the deep rows, the tile scatter and apply.
         reads=["apply_rows", "deep_rows", "deep_targets", "scatter_rows",
                "sparse_sources", "sparse_targets"],
+        stages=STAGES,
         collide=[],
         # Levels 2-3, deep levels 4-5, tile sub-levels 1-2.
         m2l={"tree.downward": 2, "tree.deep": 2, "tree.tiles": 2},
         read_in={"sparse_targets": "tree.near", "sparse_sources": "tree.near",
                  "deep_targets": "tree.deep", "deep_rows": "tree.deep",
                  "scatter_rows": "tree.tiles", "apply_rows": "tree.tiles"}),
+    "square2d": dict(
+        module=bh,
+        caps={},
+        # 32 bodies a finest cell of the 8^2 grid: past the cap of 16, so
+        # the tree's residual runs.
+        sim=lambda: _square(2048, CPU, bh_levels=3, collision_grid_res=16),
+        compactions=(),
+        fits=[],
+        # The tree's residual branch, the bucket pass's residual branch.
+        reads=["collide_overflow", "near_overflow"],
+        stages=PLAIN_STAGES,
+        collide=["collide.bucket_grid", "collide.stencil",
+                 "collide.corrections"],
+        # Levels 2-3.
+        m2l={"tree.downward": 2},
+        read_in={"near_overflow": "tree.near",
+                 "collide_overflow": "collide.corrections"}),
 }
-STAGES = ["tree.couplings", "tree.pyramid", "tree.downward", "tree.near",
-          "tree.deep", "tree.tiles", "tree.assemble"]
 
 
 def _expected_rows(what: str, need: int, cap: int, n: int):
@@ -169,7 +207,8 @@ def _assert_same_state(a, b):
 def tree_step(request):
     """One step of a tree's N = 2048 case (`TREES`) from the same state
     with recording off and on. Returns the case, the states, the recorder,
-    the compactions' mask counts and caps, and the host_read calls."""
+    the compactions' mask counts and caps, and the host_read calls and the
+    values they returned."""
     case = TREES[request.param]
     mod = case["module"]
     with pytest.MonkeyPatch.context() as mp:
@@ -179,7 +218,7 @@ def tree_step(request):
         state0 = sim.state
         off, _ = _step_from(sim, state0, record=False)
 
-        masks, reads = [], []
+        masks, reads, values = [], [], []
         compact, read = mod._compact_indices, profiling.host_read
 
         def spy_compact(mask, cap):
@@ -188,7 +227,8 @@ def tree_step(request):
 
         def spy_read(t, what):
             reads.append(what)
-            return read(t, what)
+            values.append(read(t, what))
+            return values[-1]
 
         # The tree's own compactions (the octree's sparse near field) and
         # the pipeline's (the deep rows, the tile scatter and apply).
@@ -197,10 +237,11 @@ def tree_step(request):
         mp.setattr(profiling, "host_read", spy_read)
         on, rec = _step_from(sim, state0, record=True)
     return dict(case=case, off=off, on=on, rec=rec, masks=masks,
-                reads=reads)
+                reads=reads, values=values)
 
 
-@pytest.mark.parametrize("tree", sorted(TREES))
+@pytest.mark.parametrize("tree", sorted(t for t, case in TREES.items()
+                                        if "tree.deep" in case["stages"]))
 def test_one_pipeline_serves_both_trees(monkeypatch, tree):
     """The quadtree and the octree run the one pipeline of
     `physics/barneshut.py`: a wrap of its `_exact_couplings` and
@@ -266,6 +307,22 @@ def test_host_syncs_count_the_host_reads(tree_step):
         f"host_read.{r}" for r in reads]
 
 
+def test_overflow_counters_equal_the_reads(tree_step):
+    """`collide.overflow` and `tree.near_overflow` hold the counts that
+    their reads returned, and only where those reads ran."""
+    read = Counter()
+    for what, value in zip(tree_step["reads"], tree_step["values"]):
+        if what in OVERFLOW_COUNTERS:
+            # The tree's read holds the count, then the residual's slices.
+            read[OVERFLOW_COUNTERS[what]] += (
+                value[0] if what == "near_overflow" else value)
+    cnt = tree_step["rec"].counters
+    assert {k: cnt[k] for k in OVERFLOW_COUNTERS.values() if k in cnt} \
+        == dict(read)
+    if "near_overflow" in tree_step["case"]["reads"]:
+        assert cnt["tree.near_overflow"] > 0      # the residual ran
+
+
 def test_spans_nest(tree_step):
     case = tree_step["case"]
     rec = tree_step["rec"]
@@ -275,10 +332,11 @@ def test_spans_nest(tree_step):
     parent = dict(zip(names, parents))
     assert parent["step"] is None
     assert parent["forces"] == "step"
+    stages = case["stages"]
     assert [x for x in names if x.startswith("tree.")
-            and x != "tree.m2l"] == STAGES
+            and x != "tree.m2l"] == stages
     assert [x for x in names if x.startswith("collide.")] == case["collide"]
-    assert all(parent[x] == "forces" for x in STAGES)
+    assert all(parent[x] == "forces" for x in stages)
     if case["collide"]:
         assert parent["collisions"] == "step"
         assert all(parent[x] == "collisions" for x in case["collide"])
@@ -288,7 +346,7 @@ def test_spans_nest(tree_step):
                    if x == "tree.m2l") == Counter(case["m2l"])
     for what, stage in case["read_in"].items():
         assert parent[f"host_read.{what}"] == stage, what
-    assert rec.under(names.index("tree.tiles"), "step")
+    assert rec.under(names.index(stages[-2]), "step")
     for i, s in enumerate(rec.spans):
         if s.parent is not None:
             p = rec.spans[s.parent]
@@ -296,7 +354,7 @@ def test_spans_nest(tree_step):
     summary = rec.summary()
     assert list(summary)[:2] == ["step", "forces"]
     assert summary["step"]["calls"] == 1
-    assert sum(rec.host_ms(x) for x in STAGES) <= rec.host_ms("forces") \
+    assert sum(rec.host_ms(x) for x in stages) <= rec.host_ms("forces") \
         <= rec.host_ms("step")
 
 
